@@ -1,0 +1,322 @@
+#!/usr/bin/env python3
+"""Drive grl_tpu_torch's main path on one CUDA card and check its kernels.
+
+    python3 chip_smoke.py
+
+The main path is dense evaluation with k-reciprocal re-ranking at the full
+width of ``resnet50_grl`` (ResNet-50 trunk with last stride 1, GCE,
+bidirectional TRL, BN-neck, Siamese attention pooling, 6144-d
+descriptor), with seeded random weights. Phases:
+
+1. the card: name, and name + power limit as nvidia-smi reports them;
+2. build every kernel from ``grl_tpu_torch/csrc`` (nvcc, sm_90a);
+3. each kernel against its plain PyTorch version at the main path's
+   shapes, then timed at the MARS shape beside its plain version, one
+   library call computing the same function, and its bound;
+4. the full-width descriptor on the card against the same model on the CPU;
+5. the slice: ``Evaluator(..., rerank=True).evaluate`` over a synthetic
+   catalog at 256x128, with every kernel's launch count zeroed just
+   before and read just after; the re-ranked distance matrix is checked
+   against the same re-ranking with the plain min-sum;
+6. re-ranking and the device protocol at MARS scale (1980 queries, 11310
+   query ∪ gallery items, 6144-d features).
+
+TF32 is off throughout (``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32``): the comparisons hold fp32 on
+the card against fp32 on the CPU or in plain PyTorch.
+
+Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
+exits non-zero without that last line; without a CUDA card it exits 1
+before any phase.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from grl_tpu_torch import models, ops
+from grl_tpu_torch.data import ClipDataset, ClipLoader, SyntheticVideoReID, normalize
+from grl_tpu_torch.data.sampling import dense_indices
+from grl_tpu_torch.engine import Evaluator, make_descriptor_fn, metrics
+from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
+from grl_tpu_torch.engine.rerank import re_ranking
+from grl_tpu_torch.ops.build import BUILD_INFO
+from grl_tpu_torch.ops.minplus import _lib as build_minplus
+
+# the MARS test split: 1980 queries, 11310 = 1980 + 9330 query ∪ gallery
+MARS_Q, MARS_EXTRA_G = 1980, 9330
+MARS_N = MARS_Q + MARS_Q + MARS_EXTRA_G  # 13290 rows of V
+# the card's peaks (H100 SXM data sheet): fp32 outside the tensor cores,
+# and device memory bandwidth
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+KERNEL_TOL = 1e-5  # fp32, sums of row-normalized values (≤ 1) in another order
+MODEL_TOL = 1e-3   # fp32 card vs fp32 CPU through ~60 conv layers
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def log(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def nvidia_smi():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of ``fn()`` over ``reps`` launches after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def row_normalized(rows, k, gen):
+    x = torch.rand(rows, k, device="cuda", generator=gen)
+    return x / x.sum(dim=1, keepdim=True)
+
+
+def phase_kernels(gen):
+    """Kernel against plain at the main path's shapes; then timings at MARS."""
+    worst = 0.0
+    shapes = [(37, 150, 300), (5, 9, 17), (129, 257, 1000), (256, MARS_N, MARS_N)]
+    for m, n, k in shapes:
+        a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
+        out = ops.minplus(a, b)
+        torch.cuda.synchronize()
+        err = float((out - ops.minplus_plain(a, b)).abs().max())
+        log("kernel_check", kernel="minplus", shape=[m, n, k], max_abs_err=err)
+        check(err <= KERNEL_TOL, f"minplus {m}x{n}x{k} max abs err {err}")
+        worst = max(worst, err)
+
+    m, n, k = MARS_Q, MARS_N, MARS_N
+    a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
+    out = ops.minplus(a, b)
+    torch.cuda.synchronize()
+    kernel_ms = cuda_ms(lambda: ops.minplus(a, b), reps=5)
+    plain = ops.minplus_plain(a, b)
+    plain_ms = cuda_ms(lambda: ops.minplus_plain(a, b), reps=1)
+    err = float((out - plain).abs().max())
+    check(err <= KERNEL_TOL, f"minplus at MARS shape max abs err {err}")
+    worst = max(worst, err)
+    # Σ_t min(a, b) = (Σa + Σb − Σ|a − b|) / 2: cdist(p=1) does the same pair work
+    library_ms = cuda_ms(lambda: torch.cdist(a, b, p=1), reps=1)
+    via_cdist = (a.sum(1)[:, None] + b.sum(1)[None, :] - torch.cdist(a, b, p=1)) / 2
+    ops_ms = 2.0 * m * n * k / PEAK_FP32_OPS * 1e3
+    bytes_ms = 4.0 * (m * k + n * k + m * n) / PEAK_BYTES * 1e3
+    log("kernel_time", kernel="minplus", shape=[m, n, k], ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, library_max_abs_diff=float((via_cdist - out).abs().max()),
+        ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, max_abs_err=err)
+    del a, b, out, plain, via_cdist
+    torch.cuda.empty_cache()
+    return {
+        "name": "minplus", "route": "cuda", "source": "grl_tpu_torch/csrc/minplus.cu",
+        "replaces": "grl_tpu/ops/minplus.py:38", "shape": [m, n, k],
+        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+@torch.no_grad()
+def calibrate_bn(model, run):
+    """Set every BN's running stats to the batch stats of one calibration
+    run, so eval-mode activations stay O(1) at random weights."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None  # cumulative average
+    model.train()
+    run()
+    for m in bns:
+        m.momentum = 0.1
+    model.eval()
+
+
+def phase_model(gen):
+    """Full-width descriptor: card against CPU on one seeded clip."""
+    cnn = models.create("resnet50_grl", device="cuda", seed=0)
+    sia = models.create("siamese", device="cuda", seed=1, input_num=cnn.num_feat, output_num=512)
+    # two clips to calibrate (BatchNorm1d needs a batch above 1 in train mode), one to check
+    clips = torch.randint(0, 256, (2, 8, 256, 128, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    calibrate_bn(cnn, lambda: cnn(normalize(clips)))
+    calibrate_bn(sia, lambda: sia.self_attention(cnn(normalize(clips))[1]))
+    clip = clips[:1]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        d_gpu = make_descriptor_fn(cnn, sia)(clip)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        cnn_cpu = models.create("resnet50_grl", device="cpu")
+        cnn_cpu.load_state_dict(cnn.state_dict())
+        sia_cpu = models.create("siamese", device="cpu", input_num=cnn.num_feat, output_num=512)
+        sia_cpu.load_state_dict(sia.state_dict())
+        t0 = time.perf_counter()
+        d_cpu = make_descriptor_fn(cnn_cpu.eval(), sia_cpu.eval())(clip.cpu())
+        cpu_s = time.perf_counter() - t0
+    check(tuple(d_gpu.shape) == (1, 3 * cnn.num_feat), f"descriptor shape {tuple(d_gpu.shape)}")
+    check(bool(torch.isfinite(d_gpu).all()), "descriptor not finite")
+    err = float((d_gpu.cpu() - d_cpu).abs().max())
+    c = cnn.num_feat
+    norms = [float(d_gpu[0, i * c : (i + 1) * c].norm()) for i in range(3)]
+    log("model_check", descriptor_dim=int(d_gpu.shape[1]), max_abs_diff_card_vs_cpu=err,
+        segment_norms=norms, card_seconds=gpu_s, cpu_seconds=cpu_s)
+    check(err <= MODEL_TOL, f"descriptor card vs CPU max abs diff {err}")
+
+    # warm descriptor rate at the slice's micro-batch, on the card only
+    batch = torch.randint(0, 256, (32, 8, 256, 128, 3), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: make_descriptor_fn(cnn, sia)(batch), reps=3)
+    log("descriptor_rate", micro_batch=32, ms_per_batch=ms, clips_per_s=32e3 / ms, tf32=False)
+    return cnn, sia
+
+
+def phase_slice(cnn, sia):
+    """The main path, through the entry points a user calls."""
+    t0 = time.perf_counter()
+    ds = SyntheticVideoReID(num_train_ids=0, num_test_ids=24, tracklets_per_id=2, num_cams=2,
+                            frames_range=(8, 40), height=256, width=128, seed=0)
+    n_clips = sum(len(dense_indices(t[0].shape[0], 8)) for t in ds.query + ds.gallery)
+    loader = lambda items: ClipLoader(ClipDataset(items, 8, "dense", 256, 128), batch_size=1, workers=4)
+    log("slice_setup", query=len(ds.query), gallery=len(ds.gallery), clips=n_clips,
+        catalog_seconds=time.perf_counter() - t0)
+    evaluator = Evaluator(cnn, sia, micro_batch=32, rerank=True, device="cuda")
+
+    for fn in ops.KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluator.evaluate(loader(ds.query), loader(ds.gallery))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in ops.KERNELS.items()}
+
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the main path")
+    check(tuple(res.distmat.shape) == (len(ds.query), len(ds.query) + len(ds.gallery)),
+          f"distmat shape {tuple(res.distmat.shape)}")
+    check(bool(torch.isfinite(res.distmat).all()), "re-ranked distmat not finite")
+    plain = re_ranking(cosine_distance(res.qf, res.gf), _euclidean(res.qf, res.qf),
+                       _euclidean(res.gf, res.gf), min_sum_fn=ops.minplus_plain)
+    err = float((plain - res.distmat).abs().max())
+    q_pids = np.array(ds.queryinfo.pid)
+    q_cams = np.array(ds.queryinfo.camid)
+    cmc_cos, map_cos = metrics.evaluate_device(
+        cosine_distance(res.qf, res.gf), q_pids, np.append(q_pids, ds.galleryinfo.pid),
+        q_cams, np.append(q_cams, ds.galleryinfo.camid))
+    log("slice", seconds=seconds, clips=n_clips, clips_per_s=n_clips / seconds,
+        rank1=float(res.cmc[0]), rank5=float(res.cmc[4]), mAP=res.mAP, launches=launches,
+        rank1_without_rerank=float(cmc_cos[0]), mAP_without_rerank=map_cos,
+        rerank_vs_plain_max_abs_diff=err, tf32=False)
+    check(err <= KERNEL_TOL, f"re-ranking with the kernel vs plain min-sum: {err}")
+    check(np.isfinite(res.cmc).all() and 0.0 <= res.mAP <= 1.0, "protocol out of range")
+    return launches
+
+
+def phase_mars(gen):
+    """Re-ranking + device protocol at MARS scale on random 6144-d features."""
+    def unit(rows):
+        x = torch.randn(rows, 6144, device="cuda", generator=gen)
+        return x / x.norm(dim=1, keepdim=True)
+
+    qf = unit(MARS_Q)
+    gf = torch.cat([qf, unit(MARS_EXTRA_G)])  # gallery = query ∪ gallery
+    rng = np.random.RandomState(0)
+    q_pids = rng.randint(0, MARS_Q, MARS_Q)
+    g_pids = np.concatenate([q_pids, rng.randint(0, MARS_Q, MARS_EXTRA_G)])
+    q_cams = rng.randint(0, 6, MARS_Q)
+    g_cams = np.concatenate([q_cams, rng.randint(0, 6, MARS_EXTRA_G)])
+
+    def run():
+        times = {}
+        t0 = time.perf_counter()
+        dists = cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)
+        torch.cuda.synchronize()
+        times["distances_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        final = re_ranking(*dists)
+        torch.cuda.synchronize()
+        times["rerank_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cmc, mAP = metrics.evaluate_device(final, q_pids, g_pids, q_cams, g_cams)
+        times["protocol_s"] = time.perf_counter() - t0
+        return final, cmc, mAP, times
+
+    run()  # warm
+    torch.cuda.reset_peak_memory_stats()
+    final, cmc, mAP, times = run()
+    check(tuple(final.shape) == (MARS_Q, MARS_Q + MARS_EXTRA_G), f"shape {tuple(final.shape)}")
+    check(bool(torch.isfinite(final).all()) and np.isfinite(cmc).all(), "MARS rerank not finite")
+    log("mars_rerank", queries=MARS_Q, gallery=MARS_Q + MARS_EXTRA_G, **times,
+        total_s=sum(times.values()), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        rank1=float(cmc[0]), mAP=mAP)
+
+    # where the tail's device time goes, from one more (profiled) run
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    # kernel rows only: an op's row repeats the time of the kernels it launched
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    log("mars_profile", kernel_ms_total=sum(e.self_device_time_total for e in rows) / 1e3,
+        top=[[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in rows[:12]])
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's main path runs only on a card",
+              file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
+        torch=torch.__version__, cuda=torch.version.cuda)
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    build_minplus()
+    info = BUILD_INFO["minplus"]
+    log("build", kernel="minplus", seconds=time.perf_counter() - t0, nvcc_seconds=info["seconds"],
+        ptxas=[ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln])
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    entry = phase_kernels(gen)
+    cnn, sia = phase_model(gen)
+    launches = phase_slice(cnn, sia)
+    del cnn, sia
+    torch.cuda.empty_cache()
+    phase_mars(gen)
+
+    entry["launches"] = launches["minplus"]
+    entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
+    log("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": [entry]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

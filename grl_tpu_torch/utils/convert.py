@@ -1,0 +1,61 @@
+"""Weight bridge: grl_tpu ``(params, state)`` trees -> a torch state_dict.
+
+The port names its submodules after grl_tpu's param-tree keys
+(``backbone.base.layer1.0.conv1``, ``temporal_learning_block.fwd.atte.2``
+...), so every state_dict key maps to a tree path with no alias table.
+The layout rules are those of ``grl_tpu/utils/convert_torch.py``, written
+again here because the port imports nothing of the JAX package:
+
+- 4-D conv kernels HWIO -> OIHW;
+- 2-D linear kernels ``(in, out)`` -> ``(out, in)``;
+- norm ``scale`` -> ``weight``, ``bias`` -> ``bias``;
+- state ``mean``/``var`` -> ``running_mean``/``running_var``;
+- ``num_batches_tracked`` (which grl_tpu does not keep) -> 0.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _fetch(tree, path):
+    node = tree
+    for p in path:
+        if not isinstance(node, dict) or p not in node:
+            raise KeyError(f"path {'.'.join(path)} not in the tree (missing {p!r})")
+        node = node[p]
+    return node
+
+
+def _leaf(params, state, path, leaf):
+    if leaf == "running_mean":
+        return np.asarray(_fetch(state, path + ["mean"]))
+    if leaf == "running_var":
+        return np.asarray(_fetch(state, path + ["var"]))
+    if leaf == "weight":
+        node = _fetch(params, path)
+        if "kernel" in node:
+            v = np.asarray(node["kernel"])
+            return np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
+        return np.asarray(node["scale"])
+    if leaf == "bias":
+        return np.asarray(_fetch(params, path + ["bias"]))
+    raise ValueError(f"unhandled state_dict leaf {leaf!r} at {'.'.join(path)}")
+
+
+def state_dict_from_jax(params, state, module):
+    """State_dict for ``module`` from grl_tpu's trees (nested dicts of numpy
+    arrays), ready for ``module.load_state_dict(sd, strict=True)``. Each
+    value takes the dtype and device of the module's own entry."""
+    out = {}
+    for key, ref in module.state_dict().items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            out[key] = torch.zeros_like(ref)
+            continue
+        value = _leaf(params, state, path, leaf)
+        if value.shape != tuple(ref.shape):
+            raise ValueError(f"shape mismatch at {key}: {value.shape} vs {tuple(ref.shape)}")
+        out[key] = torch.tensor(value, dtype=ref.dtype, device=ref.device)
+    return out

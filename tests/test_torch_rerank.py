@@ -1,0 +1,123 @@
+"""The port's re-ranking and protocol against grl_tpu's device path.
+
+The reference is ``re_ranking_device(..., interpret=True)``: the one-program
+path a TPU runs, with its ``lax.top_k`` tie order. (grl_tpu's host numpy
+``re_ranking`` sorts with an unstable argsort, so its tie order is not the
+device path's.) Tolerance 1e-4, as in test_ops.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from grl_tpu.engine import metrics as jmetrics
+from grl_tpu.engine.evaluator import _euclidean as j_euclidean
+from grl_tpu.engine.evaluator import cosine_distance as j_cosine
+from grl_tpu.engine.rerank import re_ranking_device
+from grl_tpu_torch.engine import metrics as tmetrics
+from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
+from grl_tpu_torch.engine.rerank import nearest, re_ranking, warn_if_degenerate
+
+
+def _synthetic_dists(q, g, dim=32, seed=0):
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(q + g, dim).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    d = np.linalg.norm(feats[:, None] - feats[None, :], axis=2)
+    return d[:q, q:], d[:q, :q], d[q:, q:]
+
+
+def _duplicated_layout(q=40, g=120, dim=4, seed=0):
+    """The evaluator's inputs: gallery = query ∪ gallery, so every query
+    appears twice; q_g cosine, q_q and g_g euclidean. Features on a small
+    lattice ({-1, 0, 1}^dim, normalized) make many distances exactly equal,
+    so most rows tie across the k1 + 1, ⌊k1/2⌋ + 1 and k2 boundaries."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randint(-1, 2, (q + g, dim)).astype(np.float32)
+    feats[np.abs(feats).sum(1) == 0, 0] = 1.0
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    qf, gf = feats[:q], np.concatenate([feats[:q], feats[q:]])
+    return (np.asarray(j_cosine(qf, gf)), np.asarray(j_euclidean(qf, qf)),
+            np.asarray(j_euclidean(gf, gf)), qf, gf)
+
+
+LAYOUTS = {
+    "synthetic_25x90": lambda: _synthetic_dists(25, 90),
+    "tiny_gallery_clamps_topk": lambda: _synthetic_dists(4, 9),  # n = 13 < k1 + 1
+    "duplicated_query_in_gallery": lambda: _duplicated_layout()[:3],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_rerank_matches_device_path(layout):
+    qg, qq, gg = LAYOUTS[layout]()
+    want = np.asarray(re_ranking_device(qg, qq, gg, interpret=True))
+    got = re_ranking(*(torch.tensor(np.asarray(x)) for x in (qg, qq, gg)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_duplicated_layout_has_topk_ties():
+    """The duplicated layout must actually exercise tie-breaking across the
+    k1 + 1 boundary, or the test above proves nothing about it."""
+    qg, qq, gg = (torch.tensor(x) for x in _duplicated_layout()[:3])
+    original = torch.cat([torch.cat([qq, qg], 1), torch.cat([qg.T, gg], 1)]).square()
+    original = (original / original.max(dim=0).values).T
+    srt = original.sort(dim=1).values
+    assert int((srt[:, 20] == srt[:, 21]).sum()) > 100  # of 200 rows
+
+
+def test_nearest_breaks_ties_to_lower_index():
+    row = torch.tensor([[0.5, 0.1, 0.3, 0.1, 0.3, 0.2, 0.1]])
+    assert nearest(row)[0, :3].tolist() == [1, 3, 6]
+
+
+def test_distances_match_grl_tpu():
+    rng = np.random.RandomState(1)
+    qf, gf = (rng.randn(n, 64).astype(np.float32) for n in (30, 90))
+    qf /= np.linalg.norm(qf, axis=1, keepdims=True)
+    gf /= np.linalg.norm(gf, axis=1, keepdims=True)
+    tq, tg = torch.from_numpy(qf), torch.from_numpy(gf)
+    np.testing.assert_allclose(cosine_distance(tq, tg).numpy(), np.asarray(j_cosine(qf, gf)),
+                               rtol=1e-5, atol=1e-6)
+    # off the diagonal; on it |a|² − 2a·a + |a|² is fp32 cancellation noise
+    # (~1e-7) whose square root (~3e-4) differs between any two matmuls
+    got, want = _euclidean(tg, tg).numpy(), np.asarray(j_euclidean(gf, gf))
+    off = ~np.eye(len(gf), dtype=bool)
+    np.testing.assert_allclose(got[off], want[off], rtol=1e-5, atol=1e-5)
+    assert np.all(np.diag(got) < 1e-3)
+
+
+def _tie_heavy_protocol(seed=3, q=20, g=70):
+    rng = np.random.RandomState(seed)
+    distmat = rng.randint(0, 4, (q, g)).astype(np.float32)  # exact ties everywhere
+    return (distmat, rng.randint(0, 8, q), rng.randint(0, 8, g),
+            rng.randint(0, 3, q), rng.randint(0, 3, g))
+
+
+@pytest.mark.parametrize("max_rank", [20, 100])
+def test_protocol_matches_grl_tpu_on_ties(max_rank):
+    args = _tie_heavy_protocol()
+    cmc_ref, map_ref = jmetrics.evaluate(*args, max_rank=max_rank)
+    cmc_host, map_host = tmetrics.evaluate(*args, max_rank=max_rank)
+    cmc_dev, map_dev = tmetrics.evaluate_device(torch.from_numpy(args[0]), *args[1:],
+                                                max_rank=max_rank)
+    np.testing.assert_array_equal(cmc_host, cmc_ref)
+    np.testing.assert_array_equal(cmc_dev, cmc_ref)
+    assert abs(map_host - map_ref) < 1e-6
+    assert abs(map_dev - map_ref) < 1e-6
+
+
+@pytest.mark.parametrize("fn", ["evaluate", "evaluate_device"])
+def test_protocol_raises_when_no_valid_query(fn):
+    distmat = np.random.RandomState(0).rand(3, 4).astype(np.float32)
+    args = (np.array([1, 2, 3]), np.array([7, 8, 9, 7]), np.zeros(3, np.int32), np.ones(4, np.int32))
+    with pytest.raises(RuntimeError):
+        getattr(tmetrics, fn)(torch.from_numpy(distmat) if fn == "evaluate_device" else distmat, *args)
+
+
+def test_degenerate_scale_warning(capsys):
+    assert warn_if_degenerate(13, k1=20)
+    assert "WARNING" in capsys.readouterr().err
+    assert not warn_if_degenerate(11310, k1=20)
+    assert capsys.readouterr().err == ""
