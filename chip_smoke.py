@@ -11,8 +11,12 @@ descriptor), with seeded random weights. Phases:
 1. the card: name, and name + power limit as nvidia-smi reports them;
 2. build every kernel from ``grl_tpu_torch/csrc`` (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version at the main path's
-   shapes, then timed at the MARS shape beside its plain version, one
-   library call computing the same function, and its bound;
+   shapes and at the edges of its design (ragged k, k below one stage,
+   k = 0, tile multiples and one above, more tiles than resident blocks,
+   row-strided operands, V-like sparse rows), then timed at the MARS shape
+   beside its plain version, one library call computing the same function,
+   its data-sheet bound and its instruction-issue bound, with the SM clock
+   and power draw sampled while it runs;
 4. the full-width descriptor on the card against the same model on the CPU;
 5. the slice: ``Evaluator(..., rerank=True).evaluate`` over a synthetic
    catalog at 256x128, with every kernel's launch count zeroed just
@@ -48,6 +52,7 @@ from grl_tpu_torch.engine import Evaluator, make_descriptor_fn, metrics
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
 from grl_tpu_torch.engine.rerank import re_ranking
 from grl_tpu_torch.ops.build import BUILD_INFO
+from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
 
 # the MARS test split: 1980 queries, 11310 = 1980 + 9330 query ∪ gallery
@@ -70,22 +75,26 @@ def log(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def nvidia_smi():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi(query="name,power.limit", units=True):
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn()`` over ``reps`` launches after one warm-up."""
+def cuda_ms(fn, reps, during=None):
+    """Mean device time of ``fn()`` over ``reps`` launches after one warm-up;
+    ``during()``, if given, runs on the host while the launches execute."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    sampled = during() if during else None
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / reps
+    return (ms, sampled) if during else ms
 
 
 def row_normalized(rows, k, gen):
@@ -93,24 +102,50 @@ def row_normalized(rows, k, gen):
     return x / x.sum(dim=1, keepdim=True)
 
 
-def phase_kernels(gen):
-    """Kernel against plain at the main path's shapes; then timings at MARS."""
-    worst = 0.0
-    shapes = [(37, 150, 300), (5, 9, 17), (129, 257, 1000), (256, MARS_N, MARS_N)]
+def sparse_rows(rows, k, nnz, gen):
+    """V-like rows: ~nnz positive entries out of k, row-normalized."""
+    keep = torch.rand(rows, k, device="cuda", generator=gen) < nnz / k
+    x = torch.rand(rows, k, device="cuda", generator=gen) * keep
+    x[:, 0] += 1e-3  # no empty row
+    return x / x.sum(dim=1, keepdim=True)
+
+
+def kernel_cases(gen):
+    """(what, a, b) at the main path's shapes and the design's edges."""
+    tile, slots = minplus_config(torch.device("cuda"))
+    many_m = -(-(slots + slots // 4) // 8) * tile[0] - 5  # > slots tiles with n = 8 tile columns
+    shapes = [(37, 150, 300), (5, 9, 17), (129, 257, 1000), (256, MARS_N, MARS_N),
+              (37, 150, 1001), (40, 70, 5), (9, 300, 0),
+              (tile[0], tile[1], 300), (tile[0] + 1, tile[1] + 1, 300),
+              (many_m, 8 * tile[1] - 3, 64), (many_m, 8 * tile[1] - 3, 1001)]
     for m, n, k in shapes:
-        a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
+        yield f"{m}x{n}x{k}", row_normalized(m, k, gen), row_normalized(n, k, gen)
+    wide_a, wide_b = row_normalized(70, 1003, gen), row_normalized(150, 1003, gen)
+    yield "row-strided 70x147x999", wide_a[:, 1:1000], wide_b[3:, :999]
+    v = sparse_rows(2000, 2000, 30, gen)
+    yield "V-like 300x2000x2000, ~30 of 2000 non-zero", v[:300], v
+
+
+def phase_kernels(gen):
+    """Kernel against plain at the main path's shapes and the design's
+    edges; then timings at MARS."""
+    worst = 0.0
+    for what, a, b in kernel_cases(gen):
         out = ops.minplus(a, b)
         torch.cuda.synchronize()
-        err = float((out - ops.minplus_plain(a, b)).abs().max())
-        log("kernel_check", kernel="minplus", shape=[m, n, k], max_abs_err=err)
-        check(err <= KERNEL_TOL, f"minplus {m}x{n}x{k} max abs err {err}")
+        err = float((out - ops.minplus_plain(a, b)).abs().max()) if out.numel() else 0.0
+        log("kernel_check", kernel="minplus", case=what, max_abs_err=err)
+        check(err <= KERNEL_TOL, f"minplus {what} max abs err {err}")
+        if a.shape[1] == 0:
+            check(bool((out == 0).all()), "minplus with k = 0 is not all zeros")
         worst = max(worst, err)
 
     m, n, k = MARS_Q, MARS_N, MARS_N
     a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
     out = ops.minplus(a, b)
     torch.cuda.synchronize()
-    kernel_ms = cuda_ms(lambda: ops.minplus(a, b), reps=5)
+    kernel_ms, (sm_mhz, power_w) = cuda_ms(lambda: ops.minplus(a, b), reps=10,
+                                           during=lambda: nvidia_smi("clocks.sm,power.draw", units=False).split(", "))
     plain = ops.minplus_plain(a, b)
     plain_ms = cuda_ms(lambda: ops.minplus_plain(a, b), reps=1)
     err = float((out - plain).abs().max())
@@ -121,9 +156,15 @@ def phase_kernels(gen):
     via_cdist = (a.sum(1)[:, None] + b.sum(1)[None, :] - torch.cdist(a, b, p=1)) / 2
     ops_ms = 2.0 * m * n * k / PEAK_FP32_OPS * 1e3
     bytes_ms = 4.0 * (m * k + n * k + m * n) / PEAK_BYTES * 1e3
+    # one FMNMX and one FADD issued per triple; 4 schedulers x 32 lanes per SM
+    max_mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_ms = 2.0 * m * n * k / (sms * 128 * max_mhz * 1e6) * 1e3
     log("kernel_time", kernel="minplus", shape=[m, n, k], ms=kernel_ms, plain_ms=plain_ms,
         library_ms=library_ms, library_max_abs_diff=float((via_cdist - out).abs().max()),
-        ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, max_abs_err=err)
+        ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, issue_bound_ms=issue_ms, sms=sms,
+        clocks_max_sm_mhz=max_mhz, clocks_sm_mhz_during=float(sm_mhz),
+        power_draw_w_during=float(power_w), max_abs_err=err)
     del a, b, out, plain, via_cdist
     torch.cuda.empty_cache()
     return {
@@ -131,7 +172,7 @@ def phase_kernels(gen):
         "replaces": "grl_tpu/ops/minplus.py:38", "shape": [m, n, k],
         "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms,
+        "issue_bound_ms": issue_ms, "library_ms": library_ms,
     }
 
 

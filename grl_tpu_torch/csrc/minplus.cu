@@ -2,119 +2,318 @@
 //
 // Replaces the Pallas TPU kernel grl_tpu/ops/minplus.py::_minplus_kernel
 // (pallas_call at minplus.py:84), the Jaccard min-sum of k-reciprocal
-// re-ranking (grl_tpu/engine/rerank.py:210). A is (m, k), B is (n, k), both
-// fp32 row-major; S is (m, n) fp32.
+// re-ranking (grl_tpu/engine/rerank.py:210). A is (m, k) with row stride
+// lda, B is (n, k) with row stride ldb, both fp32 with unit column stride and
+// non-negative; S is (m, n) fp32, contiguous.
 //
-// What bounds it. `min` is not a multiply-add, so neither wgmma nor any
-// tensor-core path applies: every (i, j, t) triple costs one fminf and one
-// fadd on the fp32 CUDA cores, and the two cannot fuse into one FMA. At the
-// MARS shape (m = 1980, n = k = 13290) that is 3.5e11 triples, 7.0e11
-// operations. On instruction issue (132 SMs x 128 fp32 lanes x ~1.98 GHz,
-// about 33.5e12 lane-ops/s) that is ~21 ms, more if fminf issues below the
-// full fp32 rate on sm_90; counted against the data sheet's 67 TFLOP/s
-// (which counts an FMA as two) it is ~10.5 ms. The bytes are 0.92 GB, ~0.27
-// ms at 3.35 TB/s, so the kernel is compute-bound. These are bounds, not
-// measurements: measured times are in PERF.md with the card's name and
-// power limit.
+// Bounds at the MARS shape (m = 1980, n = k = 13290: 3.50e11 triples).
+// - Data sheet: `min` is not a multiply-add, so no tensor-core path applies;
+//   each (i, j, t) triple is one FMNMX and one FADD on the CUDA cores, and
+//   the two cannot fuse. Against the 67 TFLOP/s fp32 peak (which counts an
+//   FMA as two) the 7.0e11 operations take 10.44 ms.
+// - Issue: Hopper has no packed fp32 add and no 3-input float min, so each
+//   triple is two issued instructions: 7.0e11 / (132 SMs x 4 schedulers x 32
+//   lanes x 1.98 GHz) = ~20.9 ms at boost clock. FMNMX runs on the 16-lane
+//   ALU pipe, so it also needs one ALU slot in two clocks per triple.
+// - Bytes: 0.92 GB, 0.27 ms at 3.35 TB/s. Bound by instruction issue.
 //
-// Design. A 2-D grid of 128x128 output tiles; 256 threads (16x16) per
-// block, each thread holding an 8x8 fp32 accumulator in registers. A loop
-// over k-chunks of 32 takes the place of the TPU kernel's sequential
-// "arbitrary" grid axis: each step stages a 128x32 slab of A's rows and of
-// B's rows through shared memory, stored k-major so the inner loop reads
-// one A value per row and one B value per column. Both operands stay
-// row-major (rows, k) in device memory: no transposed copy of B exists.
-// The shared rows are padded to 129 floats so the transposing stores hit 32
-// distinct banks. A thread owns rows ty + 16*i and columns tx + 16*j, so a
-// warp's B reads are 16 consecutive floats (conflict-free) and its A reads
-// are broadcasts. Ragged m, n and k edges are masked in the kernel: out of
-// range elements are staged as 0 (min(0, 0) = 0 adds nothing) and out of
-// range outputs are not stored. Making it fast (double-buffered cp.async
-// or TMA, a deeper register tile) is later work.
+// The first design (128x128 tiles on a 2-D grid, single-buffered scalar
+// staging, scalar shared-memory reads) measured 32.3 ms on an NVIDIA H100
+// 80GB HBM3 at 700 W. This design, per loss (numbers in PERF.md):
+// 1. Staging overlaps compute. A ring of STAGES = 3 k-chunks of BK = 32 in
+//    dynamic shared memory (150,528 B with 128x256 tiles) is filled by
+//    4-byte cp.async, so a chunk's loads are in flight while the chunks
+//    before it are computed, with one __syncthreads per chunk. 4-byte copies
+//    take any row stride (13290 floats is not 16-byte aligned, which TMA
+//    would need). Rows past the edge copy the last valid row (their outputs
+//    are never stored), so only the chunk that crosses k zero-fills
+//    (src-size 0). No transposed copy of B is made: rows are read row-major
+//    and written k-major into shared memory.
+// 2. Shared-memory reads are 16 bytes. Slabs are k-major ([BK][rows + 4]);
+//    a thread owns rows {am..am+3, am+16..am+19} and RN = BN / 16 columns in
+//    float4 groups 32 apart from bn, so a k-step is 2 + RN / 4 LDS.128 for
+//    8 x RN triples: at 128x256, 6 LDS.128 per 256 math instructions (2 %
+//    of issue, against 11 % for scalar reads). A warp's A reads are 4
+//    distinct float4 and its B reads 8 contiguous float4 per group, both
+//    conflict-free; the pad of 4 floats keeps rows 16-byte aligned and
+//    spreads the cp.async stores (8 k x 4 rows per warp) over 32 banks.
+// 3. The schedule is balanced. The grid is persistent (every block slot of
+//    the card, from the occupancy query) and walks the tiles; tiles that fill
+//    whole rounds run at full k, and the tiles of the last, partial round are
+//    split along k so that round holds about as many units as there are
+//    slots (at MARS with 128x256 tiles: 832 tiles on 132 slots, 6 rounds
+//    and 40 tiles split in 3, 6.33 rounds of work instead of 7). Each part
+//    writes its partial tile to a workspace; the last part to finish (a
+//    per-tile counter) adds the parts in the fixed order 0, 1, ... and stores
+//    the tile, so the result does not depend on which block finished last.
+//    Split sums are taken in another order than one sequential pass; the
+//    difference stays far inside the 1e-5 absolute tolerance the tests and
+//    chip_smoke.py hold the kernel to (sums of row-normalized values <= 1).
+//    The split count depends on the card's slot count, so cards with other
+//    SM counts may differ in the last bits.
+// 4. Ragged edges: clamped rows and the zero-filled last chunk add nothing
+//    (min(0, 0) = 0); out-of-range outputs are not stored. The last row tile
+//    at m = 1980 still computes 68 padded rows (3 % of the work).
+// The tile is 128 x 256 at one block per SM (254 registers, 8 x 16
+// accumulators per thread), unroll 8: the fastest of the variants timed by
+// grl_tpu_torch/tools/minplus_ab.py, which builds the MINPLUS_* macros below.
+// What remains is issue efficiency: the loop is 97 % FMNMX/FADD yet issues
+// ~0.77 instructions per clock per scheduler, and a probe with two FADDs in
+// place of FMNMX + FADD runs no faster (PERF.md).
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 128;       // rows of A per block
-constexpr int BN = 128;       // rows of B per block
-constexpr int BK = 32;        // k-chunk staged per step
-constexpr int TY = 16;        // thread grid (TY x TX)
-constexpr int TX = 16;
-constexpr int RM = BM / TY;   // 8 accumulator rows per thread
-constexpr int RN = BN / TX;   // 8 accumulator columns per thread
-constexpr int PAD = BM + 1;   // shared row stride (floats)
-constexpr int NT = TY * TX;
+#ifndef MINPLUS_BN
+#define MINPLUS_BN 256    // rows of B per tile: 128 (8x8 per thread) or 256 (8x16)
+#endif
+#ifndef MINPLUS_MIN_BLOCKS
+#define MINPLUS_MIN_BLOCKS 1  // resident blocks per SM that the register budget targets
+#endif
+#ifndef MINPLUS_STAGES
+#define MINPLUS_STAGES 3  // k-chunks in the shared-memory ring
+#endif
+#ifndef MINPLUS_UNROLL
+#define MINPLUS_UNROLL 8  // k-steps unrolled in the inner loop
+#endif
 
-__global__ void __launch_bounds__(NT)
-minplus_kernel(const float* __restrict__ a, const float* __restrict__ b,
-               float* __restrict__ out, int m, int n, int k) {
-    __shared__ float as[BK][PAD];
-    __shared__ float bs[BK][PAD];
+constexpr int BM = 128;              // rows of A per tile
+constexpr int BN = MINPLUS_BN;       // rows of B per tile
+constexpr int BK = 32;               // k-chunk per pipeline stage
+constexpr int STAGES = MINPLUS_STAGES;
+constexpr int NT = 256;              // threads per block: 8 warps, 4 (M) x 2 (N)
+constexpr int RN = BN / 16;          // accumulator columns per thread, in RN / 4 float4 groups
+constexpr int LDA = BM + 4;          // shared row strides in floats
+constexpr int LDB = BN + 4;
+constexpr int SLAB_A = BK * LDA;     // floats of one stage's A slab
+constexpr int STAGE = BK * (LDA + LDB);
+constexpr int SMEM_BYTES = STAGES * STAGE * 4;
+constexpr int TILE = BM * BN;        // floats of one partial tile in the workspace
+constexpr int UNROLL = MINPLUS_UNROLL;
+static_assert(BN == 128 || BN == 256, "a warp covers 32 x BN / 2 outputs");
 
-    const int tx = threadIdx.x;
-    const int ty = threadIdx.y;
-    const int tid = ty * TX + tx;
-    const int row0 = blockIdx.y * BM;
-    const int col0 = blockIdx.x * BN;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+}
 
-    float acc[RM][RN];
+// Zero fill: copies 4 bytes when `valid`, else writes 0 and reads nothing.
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src, bool valid) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage one k-chunk of ROWS rows into a ring slot, k-major: thread t copies
+// rows t / 8 + 32 i and k-offsets t % 8 + 8 j (j < 4). `src` points at the
+// chunk's first k of the tile's first row. Rows past the edge (r >= rows)
+// copy the last valid row instead: they only reach outputs that are never
+// stored. Only a chunk that runs past k (EDGE) zero-fills.
+template <int ROWS, int LD, bool EDGE>
+__device__ __forceinline__ void load_slab(float* dst, const float* __restrict__ src, int ld,
+                                          int rows, int k_left, int tid) {
+    const int r0 = tid >> 3;
+    const int kk0 = tid & 7;
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < ROWS / 32; ++i) {
+        const int r = min(r0 + 32 * i, rows - 1);
+        const float* p = src + static_cast<int64_t>(r) * ld + kk0;
+        float* d = dst + kk0 * LD + r0 + 32 * i;
 #pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < k; k0 += BK) {
-        // A warp reads 32 consecutive k of one row: coalesced in k.
-#pragma unroll
-        for (int s = 0; s < BM * BK / NT; ++s) {
-            const int idx = tid + s * NT;
-            const int r = idx / BK;
-            const int c = idx % BK;
-            const int kk = k0 + c;
-            const int ra = row0 + r;
-            const int rb = col0 + r;
-            as[c][r] = (ra < m && kk < k) ? a[(size_t)ra * k + kk] : 0.0f;
-            bs[c][r] = (rb < n && kk < k) ? b[(size_t)rb * k + kk] : 0.0f;
+        for (int j = 0; j < 4; ++j) {
+            if (EDGE)
+                cp_async4_zfill(d + 8 * j * LD, kk0 + 8 * j < k_left ? p + 8 * j : src,
+                                kk0 + 8 * j < k_left);
+            else
+                cp_async4(d + 8 * j * LD, p + 8 * j);
         }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int c = 0; c < BK; ++c) {
-            float av[RM], bv[RN];
-#pragma unroll
-            for (int i = 0; i < RM; ++i) av[i] = as[c][ty + TY * i];
-#pragma unroll
-            for (int j = 0; j < RN; ++j) bv[j] = bs[c][tx + TX * j];
-#pragma unroll
-            for (int i = 0; i < RM; ++i)
-#pragma unroll
-                for (int j = 0; j < RN; ++j) acc[i][j] += fminf(av[i], bv[j]);
-        }
-        __syncthreads();
     }
+}
+
+__device__ __forceinline__ void load_chunk(float* stage, const float* __restrict__ a,
+                                           const float* __restrict__ b, int lda, int ldb,
+                                           int rows_a, int rows_b, int k, int c, int tid) {
+    const int k0 = c * BK;
+    if (k0 + BK <= k) {
+        load_slab<BM, LDA, false>(stage, a + k0, lda, rows_a, BK, tid);
+        load_slab<BN, LDB, false>(stage + SLAB_A, b + k0, ldb, rows_b, BK, tid);
+    } else {
+        load_slab<BM, LDA, true>(stage, a + k0, lda, rows_a, k - k0, tid);
+        load_slab<BN, LDB, true>(stage + SLAB_A, b + k0, ldb, rows_b, k - k0, tid);
+    }
+}
+
+__global__ void __launch_bounds__(NT, MINPLUS_MIN_BLOCKS)
+minplus_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
+               int m, int n, int k, int lda, int ldb, float* __restrict__ workspace,
+               int* __restrict__ counters, int dp_tiles, int splits) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int s_last;
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int am = (warp & 3) * 32 + (lane >> 3) * 4;  // first of the thread's rows
+    const int bn = (warp >> 2) * (BN / 2) + (lane & 7) * 4;  // first of the thread's columns
+
+    const int tiles_m = (m + BM - 1) / BM;
+    const int tiles = tiles_m * ((n + BN - 1) / BN);
+    const int chunks = (k + BK - 1) / BK;
+    const int units = dp_tiles + (tiles - dp_tiles) * splits;
+
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        // unit -> (tile, k-chunk range); split units of one tile are adjacent
+        int tile = u, part = 0, c_begin = 0, c_end = chunks;
+        if (u >= dp_tiles) {
+            const int idx = u - dp_tiles;
+            tile = dp_tiles + idx / splits;
+            part = idx % splits;
+            c_begin = static_cast<int>(static_cast<int64_t>(chunks) * part / splits);
+            c_end = static_cast<int>(static_cast<int64_t>(chunks) * (part + 1) / splits);
+        }
+        const int row0 = (tile % tiles_m) * BM;
+        const int col0 = (tile / tiles_m) * BN;
+        const float* ta = a + static_cast<int64_t>(row0) * lda;
+        const float* tb = b + static_cast<int64_t>(col0) * ldb;
+        const int rows_a = m - row0;
+        const int rows_b = n - col0;
+        const int nc = c_end - c_begin;
+
+        float acc[8][RN];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
 
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-        const int r = row0 + ty + TY * i;
-        if (r >= m) continue;
+        for (int s = 0; s < STAGES - 1; ++s) {
+            if (s < nc)
+                load_chunk(smem + s * STAGE, ta, tb, lda, ldb, rows_a, rows_b, k, c_begin + s, tid);
+            cp_async_commit();
+        }
+
+        int stage = 0;
+        for (int i = 0; i < nc; ++i) {
+            cp_async_wait<STAGES - 2>();
+            __syncthreads();  // chunk i has landed; every thread is done with chunk i - 1
+            {
+                const int nxt = i + STAGES - 1;
+                int slot = stage + STAGES - 1;
+                if (slot >= STAGES) slot -= STAGES;
+                if (nxt < nc)
+                    load_chunk(smem + slot * STAGE, ta, tb, lda, ldb, rows_a, rows_b, k,
+                               c_begin + nxt, tid);
+                cp_async_commit();
+            }
+            const float* as = smem + stage * STAGE + am;
+            const float* bs = smem + stage * STAGE + SLAB_A + bn;
+#pragma unroll UNROLL
+            for (int kk = 0; kk < BK; ++kk) {
+                float av[8], bv[RN];
 #pragma unroll
-        for (int j = 0; j < RN; ++j) {
-            const int c = col0 + tx + TX * j;
-            if (c < n) out[(size_t)r * n + c] = acc[i][j];
+                for (int g = 0; g < 2; ++g) {
+                    const float4 x = *reinterpret_cast<const float4*>(as + kk * LDA + 16 * g);
+                    av[4 * g] = x.x, av[4 * g + 1] = x.y, av[4 * g + 2] = x.z, av[4 * g + 3] = x.w;
+                }
+#pragma unroll
+                for (int g = 0; g < RN / 4; ++g) {
+                    const float4 x = *reinterpret_cast<const float4*>(bs + kk * LDB + 32 * g);
+                    bv[4 * g] = x.x, bv[4 * g + 1] = x.y, bv[4 * g + 2] = x.z, bv[4 * g + 3] = x.w;
+                }
+#pragma unroll
+                for (int r = 0; r < 8; ++r)
+#pragma unroll
+                    for (int q = 0; q < RN; ++q) acc[r][q] += fminf(av[r], bv[q]);
+            }
+            if (++stage == STAGES) stage = 0;
+        }
+        cp_async_wait<0>();
+        __syncthreads();  // the next unit's prologue overwrites the ring
+
+        if (u >= dp_tiles && splits > 1) {
+            // park this part; the last part of the tile to arrive sums them all
+            const int tail = tile - dp_tiles;
+            float* parts = workspace + static_cast<int64_t>(tail) * splits * TILE;
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+                for (int q = 0; q < RN; ++q)
+                    __stcg(parts + static_cast<int64_t>(part) * TILE + (r * RN + q) * NT + tid,
+                           acc[r][q]);
+            __threadfence();
+            __syncthreads();
+            if (tid == 0) s_last = atomicAdd(counters + tail, 1) == splits - 1;
+            __syncthreads();
+            if (!s_last) continue;
+            __threadfence();
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+                for (int q = 0; q < RN; ++q) {
+                    float s = 0.0f;
+                    for (int p = 0; p < splits; ++p)
+                        s += __ldcg(parts + static_cast<int64_t>(p) * TILE + (r * RN + q) * NT + tid);
+                    acc[r][q] = s;
+                }
+        }
+
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+            const int row = row0 + am + (r & 3) + (r >> 2) * 16;
+            if (row >= m) continue;
+            float* orow = out + static_cast<int64_t>(row) * n;
+#pragma unroll
+            for (int q = 0; q < RN; ++q) {
+                const int col = col0 + bn + (q & 3) + (q >> 2) * 32;
+                if (col < n) orow[col] = acc[r][q];
+            }
         }
     }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Launches on `stream` (PyTorch's current
-// stream), does not synchronize, and returns cudaGetLastError() so a
-// refused launch is reported to the caller. m, n >= 1 and k >= 0.
-extern "C" int grl_minplus_f32(const float* a, const float* b, float* out,
-                               int m, int n, int k, void* stream) {
-    dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-    dim3 block(TX, TY);
-    minplus_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out, m, n, k);
+// Tile shape and block slots per SM, for the wrapper's schedule:
+// cfg = {BM, BN, BK, blocks per SM}. Sets the kernel's dynamic shared-memory
+// limit on the current device. Returns a CUDA error code.
+extern "C" int grl_minplus_config(int* cfg) {
+    cudaError_t err = cudaFuncSetAttribute(minplus_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, minplus_kernel, NT, SMEM_BYTES);
+    cfg[0] = BM;
+    cfg[1] = BN;
+    cfg[2] = BK;
+    cfg[3] = blocks;
+    return static_cast<int>(err);
+}
+
+// Plain C entry point for ctypes. Launches `grid` persistent blocks on
+// `stream` (PyTorch's current stream), does not synchronize, and returns
+// cudaGetLastError() so a refused launch is reported to the caller.
+// m, n >= 1, k >= 0, lda >= k, ldb >= k. Tiles [0, dp_tiles) run whole; the
+// rest run in `splits` k-parts, which need `workspace` (tiles - dp_tiles) x
+// splits x BM x BN floats and `counters` (tiles - dp_tiles) zeroed ints
+// (both unused, and may be null, when splits == 1).
+extern "C" int grl_minplus_f32(const float* a, const float* b, float* out, int m, int n, int k,
+                               int lda, int ldb, float* workspace, int* counters, int grid,
+                               int dp_tiles, int splits, void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(minplus_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    minplus_kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+        a, b, out, m, n, k, lda, ldb, workspace, counters, dp_tiles, splits);
     return static_cast<int>(cudaGetLastError());
 }

@@ -43,12 +43,14 @@ def _nvcc():
     return found
 
 
-def load_library(name, sources):
-    """Build (if needed) and load ``csrc/<sources>`` as one library."""
+def load_library(name, sources, defines=()):
+    """Build (if needed) and load ``csrc/<sources>`` as one library;
+    ``defines`` are extra ``-D`` macros (``"NAME=VALUE"``)."""
     if name in _LIBS:
         return _LIBS[name]
     paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(" ".join(flags).encode())
     for p in paths:
         digest.update(p.read_bytes())
     so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -57,7 +59,7 @@ def load_library(name, sources):
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

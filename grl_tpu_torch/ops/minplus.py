@@ -37,19 +37,109 @@ def minplus_plain(a, b, chunk_elems=None):
     return out
 
 
-def _lib():
-    lib = load_library("minplus", ["minplus.cu"])
-    fn = lib.grl_minplus_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# cap on the k-parts of one tile: the fixup reads every part's tile back
+MAX_SPLITS = 8
+# a part takes at least this many k-chunks, so its pipeline runs past the prologue
+MIN_CHUNKS_PER_PART = 4
+
+
+def schedule(m, n, k, tile, slots):
+    """The persistent kernel's work split: ``(grid, dp_tiles, splits)``.
+
+    ``tile = (BM, BN, BK)``; ``slots`` is how many blocks the card holds at
+    once (SMs × blocks per SM). Tiles that fill whole rounds of ``slots``
+    run at full k; the tiles of the last, partial round (``dp_tiles`` and
+    on) are each cut along k into ``splits`` parts, so that round has about
+    as many units as there are slots. ``grid`` is the number of blocks."""
+    bm, bn, bk = tile
+    tiles = -(-m // bm) * -(-n // bn)
+    chunks = -(-k // bk)
+    rounds, tail = divmod(tiles, slots)
+    dp_tiles = rounds * slots
+    splits = 1
+    if tail:
+        splits = max(1, min(slots // tail, chunks // MIN_CHUNKS_PER_PART, MAX_SPLITS))
+    grid = slots if rounds else tail * splits
+    return grid, dp_tiles, splits
+
+
+def _lib(name="minplus", defines=(), source="minplus.cu"):
+    """The kernel's library; ``defines`` (its tile macros) or another
+    ``source`` build a variant under another ``name``."""
+    lib = load_library(name, [source], defines)
+    lib.grl_minplus_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.grl_minplus_f32.restype = ctypes.c_int
+    lib.grl_minplus_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.grl_minplus_config.restype = ctypes.c_int
+    return lib
+
+
+_CONFIG = {}  # (library, device index) -> (tile, slots)
+
+
+def _config(device, lib=None):
+    """The kernel's tile and the card's block slots, queried once per card."""
+    lib = lib or _lib()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (lib._name, index)
+    if key not in _CONFIG:
+        cfg = (ctypes.c_int * 4)()
+        with torch.cuda.device(index):
+            err = lib.grl_minplus_config(cfg)
+        if err != 0 or cfg[3] < 1:
+            raise RuntimeError(f"minplus kernel cannot be resident on {device}: "
+                               f"CUDA error {err}, {cfg[3]} blocks per SM")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _CONFIG[key] = ((cfg[0], cfg[1], cfg[2]), sms * cfg[3])
+    return _CONFIG[key]
+
+
+def launch(lib, a, b, lda, ldb):
+    """Run the kernel of ``lib`` on checked CUDA operands; returns S."""
+    m, k = a.shape
+    n = b.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(a.device):
+        tile, slots = _config(a.device, lib)
+        grid, dp_tiles, splits = schedule(m, n, k, tile, slots)
+        workspace = counters = None
+        if splits > 1:
+            tail = -(-m // tile[0]) * -(-n // tile[1]) - dp_tiles
+            workspace = torch.empty(tail * splits * tile[0] * tile[1], dtype=torch.float32,
+                                    device=a.device)
+            counters = torch.zeros(tail, dtype=torch.int32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.grl_minplus_f32(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, lda, ldb,
+            workspace.data_ptr() if splits > 1 else None,
+            counters.data_ptr() if splits > 1 else None, grid, dp_tiles, splits, stream)
+    if err != 0:
+        raise RuntimeError(f"minplus kernel launch failed: CUDA error {err}")
+    return out
+
+
+def row_strides(a, b):
+    """``(lda, ldb)`` of (m, k) and (n, k) operands the kernel can read: unit
+    column stride, any row stride, every size in int32; raises otherwise."""
+    k = a.shape[1]
+    if k > 1 and (a.stride(1) != 1 or b.stride(1) != 1):
+        raise ValueError(f"minplus takes operands with unit column stride; got {a.stride()}, {b.stride()}")
+    lda, ldb = a.stride(0), b.stride(0)
+    if max(a.shape[0], b.shape[0], k, lda, ldb) >= 2**31:
+        raise ValueError(f"minplus sizes must fit in int32: {tuple(a.shape)}, {tuple(b.shape)}")
+    return lda, ldb
 
 
 def minplus(a, b):
     """``S[i, j] = Σ_t min(a[i, t], b[j, t])`` for fp32 a (m, k), b (n, k).
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
-    ``minplus_plain``. ``minplus.launches`` counts kernel launches."""
+    ``minplus_plain``. On the card each operand needs a unit column stride;
+    its rows may be strided (a row slice or column slice of a wider
+    matrix). ``minplus.launches`` counts kernel launches."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"minplus takes (m, k) and (n, k); got {tuple(a.shape)}, {tuple(b.shape)}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
@@ -60,22 +150,9 @@ def minplus(a, b):
         return minplus_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"minplus runs on CUDA or CPU tensors, not {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("minplus takes contiguous operands")
-    m, k = a.shape
-    n = b.shape[0]
-    if max(m, n, k) >= 2**31:
-        raise ValueError(f"minplus sizes must fit in int32: {tuple(a.shape)}, {tuple(b.shape)}")
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    fn = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
-    if err != 0:
-        raise RuntimeError(f"minplus kernel launch failed: CUDA error {err}")
-    minplus.launches += 1
+    out = launch(_lib(), a, b, *row_strides(a, b))
+    if out.numel():
+        minplus.launches += 1
     return out
 
 

@@ -14,6 +14,7 @@ import torch
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
 from grl_tpu_torch.engine.rerank import re_ranking
 from grl_tpu_torch.ops import minplus, minplus_plain
+from grl_tpu_torch.ops.minplus import _config, schedule
 
 pytestmark = pytest.mark.cuda
 
@@ -44,10 +45,88 @@ def test_minplus_kernel_matches_plain(gen, shape):
     torch.testing.assert_close(out, minplus_plain(a, b), rtol=0, atol=TOL)
 
 
+def sparse_rows(rows, k, nnz, gen):
+    """V-like rows: ~nnz positive entries out of k, row-normalized."""
+    keep = torch.rand(rows, k, device="cuda", generator=gen) < nnz / k
+    x = torch.rand(rows, k, device="cuda", generator=gen) * keep
+    x[:, 0] += 1e-3  # no empty row
+    return x / x.sum(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("shape", [
+    (37, 150, 1001),   # k not a multiple of 4
+    (40, 70, 5),       # k below one pipeline stage (BK = 32)
+    (128, 256, 300),   # m and n at a tile multiple
+    (129, 257, 300),   # one above it
+    (3, 5, 33),        # one k-chunk and one element over
+])
+def test_minplus_kernel_edges(gen, shape):
+    m, n, k = shape
+    a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
+    out = minplus(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, minplus_plain(a, b), rtol=0, atol=TOL)
+
+
+def test_minplus_kernel_k_zero_gives_zeros(gen):
+    a, b = torch.empty(9, 0, device="cuda"), torch.empty(300, 0, device="cuda")
+    out = minplus(a, b)
+    torch.cuda.synchronize()
+    assert out.shape == (9, 300)
+    assert bool((out == 0).all())
+
+
+@pytest.mark.parametrize("k", [64, 1001])
+def test_minplus_kernel_more_tiles_than_blocks(gen, k):
+    """Whole rounds of persistent blocks, then a tail round (split along k
+    at k = 1001)."""
+    tile, slots = _config(torch.device("cuda"))
+    tiles_n = 8
+    tiles_m = -(-(slots + slots // 4) // tiles_n)
+    m, n = tiles_m * tile[0] - 5, tiles_n * tile[1] - 3
+    grid, dp_tiles, splits = schedule(m, n, k, tile, slots)
+    assert grid == slots and dp_tiles == slots and tiles_m * tiles_n > slots
+    assert (splits > 1) == (k == 1001)
+    a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
+    out = minplus(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, minplus_plain(a, b), rtol=0, atol=TOL)
+
+
+def test_minplus_kernel_on_sparse_v_like_rows(gen):
+    a = sparse_rows(300, 2000, 30, gen)
+    b = torch.cat([a, sparse_rows(1700, 2000, 30, gen)])
+    out = minplus(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, minplus_plain(a, b), rtol=0, atol=TOL)
+    torch.testing.assert_close(out.diagonal(), torch.ones(300, device="cuda"), rtol=0, atol=TOL)
+
+
+def test_minplus_kernel_split_tiles_are_deterministic(gen):
+    """The split tail is summed in a fixed order: two runs agree bit for bit."""
+    m, n, k = 129, 257, 1000
+    tile, slots = _config(torch.device("cuda"))
+    assert schedule(m, n, k, tile, slots)[2] > 1
+    a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
+    first = minplus(a, b)
+    torch.testing.assert_close(minplus(a, b), first, rtol=0, atol=0)
+
+
+def test_minplus_row_strided_views_match_contiguous(gen):
+    wide_a, wide_b = row_normalized(70, 1003, gen), row_normalized(150, 1003, gen)
+    a, b = wide_a[:, 1:1000], wide_b[3:, :999]  # row strides 1003, unit column stride
+    assert not a.is_contiguous() and not b.is_contiguous()
+    got = minplus(a, b)
+    torch.testing.assert_close(got, minplus(a.contiguous(), b.contiguous()), rtol=0, atol=0)
+    torch.testing.assert_close(got, minplus_plain(a, b), rtol=0, atol=TOL)
+
+
 def test_minplus_rejects_what_the_kernel_does_not_take(gen):
     a, b = row_normalized(8, 16, gen), row_normalized(6, 16, gen)
     with pytest.raises(ValueError):
-        minplus(a.T.contiguous().T, b)  # not contiguous
+        minplus(a.T.contiguous().T, b)  # column stride 8
+    with pytest.raises(ValueError):
+        minplus(a, row_normalized(16, 12, gen).T)  # column stride 12
     with pytest.raises(ValueError):
         minplus(a, b.cpu())
 

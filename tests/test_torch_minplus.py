@@ -6,6 +6,7 @@ import torch
 
 from grl_tpu.ops import minplus_matmul
 from grl_tpu_torch.ops import minplus, minplus_plain
+from grl_tpu_torch.ops.minplus import MAX_SPLITS, row_strides, schedule
 
 CASES = {
     # the dense and the ragged (non-tile-multiple m, n, k) cases of test_ops.py
@@ -50,3 +51,109 @@ def test_wrapper_rejects_bad_operands():
         minplus(a.double(), torch.rand(5, 8).double())
     with pytest.raises(ValueError):
         minplus(a[0], torch.rand(5, 8))
+
+
+# the kernel's tile (BM, BN, BK) and an H100's block slots (132 SMs x 1)
+TILE, SLOTS = (128, 256, 32), 132
+
+
+def test_schedule_at_mars():
+    # 16 x 52 = 832 tiles: 6 whole rounds of 132, then 40 tiles split in 3
+    assert schedule(1980, 13290, 13290, TILE, SLOTS) == (132, 792, 3)
+
+
+@pytest.mark.parametrize("shape, want", [
+    ((5, 9, 17), (1, 0, 1)),              # one tile, one chunk: nothing to split
+    ((129, 257, 1000), (32, 0, 8)),       # 4 tiles, 32 chunks: split in MAX_SPLITS
+    ((129, 257, 0), (4, 0, 1)),           # k = 0: no chunk to split
+    ((128 * 12, 256 * 11, 64), (132, 132, 1)),  # whole rounds only
+])
+def test_schedule_cases(shape, want):
+    assert schedule(*shape, TILE, SLOTS) == want
+
+
+def _units(m, n, k, tile, slots):
+    """The kernel's walk: every block's units as (tile, first chunk, end chunk),
+    as ``minplus_kernel`` derives them from ``schedule``."""
+    grid, dp_tiles, splits = schedule(m, n, k, tile, slots)
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
+    chunks = -(-k // tile[2])
+    units = dp_tiles + (tiles - dp_tiles) * splits
+    walk = []
+    for block in range(grid):
+        mine = []
+        for u in range(block, units, grid):
+            if u < dp_tiles:
+                mine.append((u, 0, chunks))
+            else:
+                idx = u - dp_tiles
+                part = idx % splits
+                mine.append((dp_tiles + idx // splits, chunks * part // splits,
+                             chunks * (part + 1) // splits))
+        walk.append(mine)
+    return grid, splits, walk
+
+
+@pytest.mark.parametrize("slots", [1, 7, 132, 264])
+@pytest.mark.parametrize("shape", [(1980, 13290, 13290), (129, 257, 1000), (3000, 700, 40), (5, 9, 17)])
+def test_schedule_covers_every_tile_chunk_once_and_balances(shape, slots):
+    m, n, k = shape
+    grid, splits, walk = _units(m, n, k, TILE, slots)
+    tiles = -(-m // TILE[0]) * -(-n // TILE[1])
+    chunks = -(-k // TILE[2])
+    assert 1 <= grid <= slots and 1 <= splits <= MAX_SPLITS
+    covered = {}
+    for mine in walk:
+        for tile, c0, c1 in mine:
+            assert 0 <= c0 < c1 <= chunks or chunks == 0
+            covered.setdefault(tile, []).extend(range(c0, c1))
+    assert sorted(covered) == list(range(tiles))
+    assert all(sorted(c) == list(range(chunks)) for c in covered.values())
+    # balance: no block does more than one round (in chunks) beyond the least loaded
+    load = [sum(c1 - c0 for _, c0, c1 in mine) for mine in walk]
+    assert max(load) - min(load) <= chunks
+
+
+def test_split_tiles_summed_in_fixed_order_match_plain():
+    """The decomposition the kernel runs, on the CPU: k-parts of split tiles
+    summed in part order 0, 1, ... agree with one pass at the kernel's
+    tolerance."""
+    rng = np.random.RandomState(1)
+    m, n, k, tile, slots = 40, 50, 300, (16, 32, 8), 5
+    a, b = (torch.from_numpy(rng.rand(r, k).astype(np.float32)) for r in (m, n))
+    a, b = a / a.sum(1, keepdim=True), b / b.sum(1, keepdim=True)
+    _, splits, walk = _units(m, n, k, tile, slots)
+    assert splits > 1
+    tiles_m = -(-m // tile[0])
+    parts = {}
+    for mine in walk:
+        for t, c0, c1 in mine:
+            r0, q0 = (t % tiles_m) * tile[0], (t // tiles_m) * tile[1]
+            ks = slice(c0 * tile[2], c1 * tile[2])
+            parts.setdefault(t, []).append(
+                (c0, minplus_plain(a[r0:r0 + tile[0], ks], b[q0:q0 + tile[1], ks])))
+    out = torch.empty(m, n)
+    for t, ps in parts.items():
+        r0, q0 = (t % tiles_m) * tile[0], (t // tiles_m) * tile[1]
+        acc = torch.zeros_like(ps[0][1])
+        for _, p in sorted(ps, key=lambda x: x[0]):
+            acc = acc + p
+        out[r0:r0 + tile[0], q0:q0 + tile[1]] = acc
+    torch.testing.assert_close(out, minplus_plain(a, b), rtol=0, atol=1e-5)
+
+
+def test_row_strides_take_row_slices_and_refuse_column_strides():
+    wide = torch.rand(10, 23)
+    assert row_strides(wide[:, 2:20], wide[3:, :18]) == (23, 23)
+    assert row_strides(torch.rand(4, 8), torch.rand(6, 8)) == (8, 8)
+    with pytest.raises(ValueError):
+        row_strides(torch.rand(8, 4).T, torch.rand(6, 8))
+    with pytest.raises(ValueError):
+        row_strides(torch.rand(4, 8), wide[:, ::2][:, :8])
+
+
+def test_wrapper_on_cpu_takes_strided_views():
+    wide = torch.rand(30, 41)
+    a, b = wide[:7, 1:40], wide[5:, :39]
+    torch.testing.assert_close(minplus(a, b), minplus_plain(a.contiguous(), b.contiguous()),
+                               rtol=0, atol=0)
