@@ -97,9 +97,12 @@ def cuda_ms(fn, reps, during=None):
     return (ms, sampled) if during else ms
 
 
-def row_normalized(rows, k, gen):
+def row_normalized(rows, k, gen, padded=False):
+    """Row-normalized uniform rows; ``padded`` puts them in 16-byte aligned
+    rows, as re-ranking builds V (``ops.padded_empty``)."""
     x = torch.rand(rows, k, device="cuda", generator=gen)
-    return x / x.sum(dim=1, keepdim=True)
+    x /= x.sum(dim=1, keepdim=True)
+    return ops.padded_empty(rows, k, "cuda").copy_(x) if padded else x
 
 
 def sparse_rows(rows, k, nnz, gen):
@@ -141,11 +144,16 @@ def phase_kernels(gen):
         worst = max(worst, err)
 
     m, n, k = MARS_Q, MARS_N, MARS_N
-    a, b = row_normalized(m, k, gen), row_normalized(n, k, gen)
+    a, b = row_normalized(m, k, gen, padded=True), row_normalized(n, k, gen, padded=True)
     out = ops.minplus(a, b)
     torch.cuda.synchronize()
     kernel_ms, (sm_mhz, power_w) = cuda_ms(lambda: ops.minplus(a, b), reps=10,
                                            during=lambda: nvidia_smi("clocks.sm,power.draw", units=False).split(", "))
+    # the same call on contiguous rows of 13290 floats, which the wrapper
+    # first copies into 16-byte aligned rows
+    a_dense, b_dense = a.contiguous(), b.contiguous()
+    dense_ms = cuda_ms(lambda: ops.minplus(a_dense, b_dense), reps=3)
+    del a_dense, b_dense
     plain = ops.minplus_plain(a, b)
     plain_ms = cuda_ms(lambda: ops.minplus_plain(a, b), reps=1)
     err = float((out - plain).abs().max())
@@ -161,6 +169,7 @@ def phase_kernels(gen):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue_ms = 2.0 * m * n * k / (sms * 128 * max_mhz * 1e6) * 1e3
     log("kernel_time", kernel="minplus", shape=[m, n, k], ms=kernel_ms, plain_ms=plain_ms,
+        unaligned_rows_ms=dense_ms,
         library_ms=library_ms, library_max_abs_diff=float((via_cdist - out).abs().max()),
         ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, issue_bound_ms=issue_ms, sms=sms,
         clocks_max_sm_mhz=max_mhz, clocks_sm_mhz_during=float(sm_mhz),

@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel grl_tpu/ops/minplus.py::_minplus_kernel
 // (pallas_call at minplus.py:84), the Jaccard min-sum of k-reciprocal
 // re-ranking (grl_tpu/engine/rerank.py:210). A is (m, k) with row stride
-// lda, B is (n, k) with row stride ldb, both fp32 with unit column stride and
-// non-negative; S is (m, n) fp32, contiguous.
+// lda, B is (n, k) with row stride ldb, both fp32 with unit column stride,
+// 16-byte aligned rows and non-negative values; S is (m, n) fp32, contiguous.
 //
 // Bounds at the MARS shape (m = 1980, n = k = 13290: 3.50e11 triples).
 // - Data sheet: `min` is not a multiply-add, so no tensor-core path applies;
@@ -14,36 +14,37 @@
 // - Issue: Hopper has no packed fp32 add and no 3-input float min, so each
 //   triple is two issued instructions: 7.0e11 / (132 SMs x 4 schedulers x 32
 //   lanes x 1.98 GHz) = ~20.9 ms at boost clock. FMNMX runs on the 16-lane
-//   ALU pipe, so it also needs one ALU slot in two clocks per triple.
+//   ALU pipe, one warp instruction per two clocks, beside FADD on the FMA pipe.
 // - Bytes: 0.92 GB, 0.27 ms at 3.35 TB/s. Bound by instruction issue.
 //
 // The first design (128x128 tiles on a 2-D grid, single-buffered scalar
 // staging, scalar shared-memory reads) measured 32.3 ms on an NVIDIA H100
-// 80GB HBM3 at 700 W. This design, per loss (numbers in PERF.md):
-// 1. Staging overlaps compute. A ring of STAGES = 3 k-chunks of BK = 32 in
-//    dynamic shared memory (150,528 B with 128x256 tiles) is filled by
-//    4-byte cp.async, so a chunk's loads are in flight while the chunks
-//    before it are computed, with one __syncthreads per chunk. 4-byte copies
-//    take any row stride (13290 floats is not 16-byte aligned, which TMA
-//    would need). Rows past the edge copy the last valid row (their outputs
-//    are never stored), so only the chunk that crosses k zero-fills
-//    (src-size 0). No transposed copy of B is made: rows are read row-major
-//    and written k-major into shared memory.
-// 2. Shared-memory reads are 16 bytes. Slabs are k-major ([BK][rows + 4]);
-//    a thread owns rows {am..am+3, am+16..am+19} and RN = BN / 16 columns in
-//    float4 groups 32 apart from bn, so a k-step is 2 + RN / 4 LDS.128 for
-//    8 x RN triples: at 128x256, 6 LDS.128 per 256 math instructions (2 %
-//    of issue, against 11 % for scalar reads). A warp's A reads are 4
-//    distinct float4 and its B reads 8 contiguous float4 per group, both
-//    conflict-free; the pad of 4 floats keeps rows 16-byte aligned and
-//    spreads the cp.async stores (8 k x 4 rows per warp) over 32 banks.
+// 80GB HBM3 at 700 W; this one 24.7 ms (PERF.md). Per loss:
+// 1. Staging overlaps compute and costs the SMs no instructions. One thread
+//    issues two TMA copies (A's 128 rows, B's 256 rows, 32 k each) per
+//    chunk into a ring of STAGES = 3 slots in dynamic shared memory
+//    (147,456 B), completing on one mbarrier per slot; the block computes
+//    chunk i while chunks i + 1 and i + 2 land, with one __syncthreads per
+//    chunk before its slot is refilled. TMA zero-fills past m, n and k, so
+//    ragged edges need no masks (min(0, 0) adds nothing). TMA needs 16-byte
+//    aligned rows: re-ranking builds V in rows padded to 4 floats, and the
+//    wrapper copies any other operand into such rows. Staging with 4-byte
+//    cp.async instead cost 3.4 ms here in load/store-pipe instructions.
+//    No transposed copy of B is made.
+// 2. Shared-memory reads are 16 bytes. Slabs are [row][k], one 128-byte row
+//    of 32 k per operand row, in TMA's 128-byte swizzle (16-byte group g of
+//    row r stored at g ^ (r % 8)). A thread owns A rows a_row + 4 r (r < 8)
+//    and B rows b_row + 8 q (q < 16) and reads 4 k of each as one LDS.128:
+//    24 LDS.128 per 512 triples (1,024 math instructions), 2 % of issue
+//    against 11 % for scalar reads. The 8 B rows a warp reads at once have
+//    distinct r % 8, as do its 4 A rows, so both reads are conflict-free.
 // 3. The schedule is balanced. The grid is persistent (every block slot of
-//    the card, from the occupancy query) and walks the tiles; tiles that fill
-//    whole rounds run at full k, and the tiles of the last, partial round are
-//    split along k so that round holds about as many units as there are
-//    slots (at MARS with 128x256 tiles: 832 tiles on 132 slots, 6 rounds
-//    and 40 tiles split in 3, 6.33 rounds of work instead of 7). Each part
-//    writes its partial tile to a workspace; the last part to finish (a
+//    the card, from the occupancy query: one 128x256 block per SM) and walks
+//    the tiles; tiles that fill whole rounds run at full k, and the tiles of
+//    the last, partial round are split along k so that round holds about as
+//    many units as there are slots (at MARS: 832 tiles on 132 slots, 6
+//    rounds and 40 tiles split in 3, 6.33 rounds of work instead of 7). Each
+//    part writes its partial tile to a workspace; the last part to finish (a
 //    per-tile counter) adds the parts in the fixed order 0, 1, ... and stores
 //    the tile, so the result does not depend on which block finished last.
 //    Split sums are taken in another order than one sequential pass; the
@@ -51,18 +52,18 @@
 //    chip_smoke.py hold the kernel to (sums of row-normalized values <= 1).
 //    The split count depends on the card's slot count, so cards with other
 //    SM counts may differ in the last bits.
-// 4. Ragged edges: clamped rows and the zero-filled last chunk add nothing
-//    (min(0, 0) = 0); out-of-range outputs are not stored. The last row tile
-//    at m = 1980 still computes 68 padded rows (3 % of the work).
-// The tile is 128 x 256 at one block per SM (254 registers, 8 x 16
-// accumulators per thread), unroll 8: the fastest of the variants timed by
-// grl_tpu_torch/tools/minplus_ab.py, which builds the MINPLUS_* macros below.
-// What remains is issue efficiency: the loop is 97 % FMNMX/FADD yet issues
-// ~0.77 instructions per clock per scheduler, and a probe with two FADDs in
-// place of FMNMX + FADD runs no faster (PERF.md).
+// 4. What remains: the last row tile at m = 1980 computes 68 padded rows
+//    (3 % of the work), and the loop, 97 % FMNMX/FADD, issues below one
+//    instruction per clock per scheduler (ptxas assigns registers and
+//    stalls; `ncu` does not run where this was measured).
+// The tile is 128 x 256 at one block per SM (8 x 16 accumulators per
+// thread), 3 stages, 8 k-steps unrolled: the fastest of the variants timed
+// by grl_tpu_torch/tools/minplus_ab.py, which builds the MINPLUS_* macros.
 
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 namespace {
 
@@ -76,101 +77,115 @@ namespace {
 #define MINPLUS_STAGES 3  // k-chunks in the shared-memory ring
 #endif
 #ifndef MINPLUS_UNROLL
-#define MINPLUS_UNROLL 8  // k-steps unrolled in the inner loop
+#define MINPLUS_UNROLL 8  // k-steps unrolled in the inner loop (a multiple of 4)
 #endif
 
 constexpr int BM = 128;              // rows of A per tile
 constexpr int BN = MINPLUS_BN;       // rows of B per tile
-constexpr int BK = 32;               // k-chunk per pipeline stage
+constexpr int BK = 32;               // k-chunk per pipeline stage: one 128-byte row per operand row
 constexpr int STAGES = MINPLUS_STAGES;
 constexpr int NT = 256;              // threads per block: 8 warps, 4 (M) x 2 (N)
-constexpr int RN = BN / 16;          // accumulator columns per thread, in RN / 4 float4 groups
-constexpr int LDA = BM + 4;          // shared row strides in floats
-constexpr int LDB = BN + 4;
-constexpr int SLAB_A = BK * LDA;     // floats of one stage's A slab
-constexpr int STAGE = BK * (LDA + LDB);
-constexpr int SMEM_BYTES = STAGES * STAGE * 4;
+constexpr int RN = BN / 16;          // B rows (output columns) per thread
+constexpr int A_BYTES = BM * BK * 4;
+constexpr int STAGE_BYTES = (BM + BN) * BK * 4;
+// the ring, 1024 bytes of slack to align it for the 128-byte swizzle, the
+// ring's mbarriers and the split-k flag
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 8 * STAGES + 16;
 constexpr int TILE = BM * BN;        // floats of one partial tile in the workspace
-constexpr int UNROLL = MINPLUS_UNROLL;
-static_assert(BN == 128 || BN == 256, "a warp covers 32 x BN / 2 outputs");
+constexpr int QUADS_UNROLLED = MINPLUS_UNROLL / 4;
+static_assert(BK * 4 == 128, "a chunk row is one 128-byte swizzle row");
+static_assert(BN == 128 || BN == 256, "a warp covers 32 x BN / 2 outputs; a TMA box is <= 256 rows");
+static_assert(MINPLUS_UNROLL % 4 == 0, "the loop steps over 4-k quads");
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Zero fill: copies 4 bytes when `valid`, else writes 0 and reads nothing.
-__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src, bool valid) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+// Wait until the barrier has completed the phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "LAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\n"
+        "bra LAB_WAIT;\n"
+        "DONE:\n"
+        "}\n" :: "r"(bar), "r"(parity) : "memory");
 }
 
-// Stage one k-chunk of ROWS rows into a ring slot, k-major: thread t copies
-// rows t / 8 + 32 i and k-offsets t % 8 + 8 j (j < 4). `src` points at the
-// chunk's first k of the tile's first row. Rows past the edge (r >= rows)
-// copy the last valid row instead: they only reach outputs that are never
-// stored. Only a chunk that runs past k (EDGE) zero-fills.
-template <int ROWS, int LD, bool EDGE>
-__device__ __forceinline__ void load_slab(float* dst, const float* __restrict__ src, int ld,
-                                          int rows, int k_left, int tid) {
-    const int r0 = tid >> 3;
-    const int kk0 = tid & 7;
-#pragma unroll
-    for (int i = 0; i < ROWS / 32; ++i) {
-        const int r = min(r0 + 32 * i, rows - 1);
-        const float* p = src + static_cast<int64_t>(r) * ld + kk0;
-        float* d = dst + kk0 * LD + r0 + 32 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (EDGE)
-                cp_async4_zfill(d + 8 * j * LD, kk0 + 8 * j < k_left ? p + 8 * j : src,
-                                kk0 + 8 * j < k_left);
-            else
-                cp_async4(d + 8 * j * LD, p + 8 * j);
-        }
-    }
+// One TMA copy of the box at (k0, row0) into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k0, int row0,
+                                         uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(bar)
+        : "memory");
 }
 
-__device__ __forceinline__ void load_chunk(float* stage, const float* __restrict__ a,
-                                           const float* __restrict__ b, int lda, int ldb,
-                                           int rows_a, int rows_b, int k, int c, int tid) {
-    const int k0 = c * BK;
-    if (k0 + BK <= k) {
-        load_slab<BM, LDA, false>(stage, a + k0, lda, rows_a, BK, tid);
-        load_slab<BN, LDB, false>(stage + SLAB_A, b + k0, ldb, rows_b, BK, tid);
-    } else {
-        load_slab<BM, LDA, true>(stage, a + k0, lda, rows_a, k - k0, tid);
-        load_slab<BN, LDB, true>(stage + SLAB_A, b + k0, ldb, rows_b, k - k0, tid);
-    }
+// Fill one ring slot with k-chunk c of the tile at (row0, col0): A's rows,
+// then B's. TMA zero-fills rows past m or n and k past k: min(0, 0) adds
+// nothing.
+__device__ __forceinline__ void load_chunk(uint32_t dst, uint32_t bar, const CUtensorMap* map_a,
+                                           const CUtensorMap* map_b, int c, int row0, int col0) {
+    mbar_expect_tx(bar, STAGE_BYTES);
+    tma_load(dst, map_a, c * BK, row0, bar);
+    tma_load(dst + A_BYTES, map_b, c * BK, col0, bar);
+}
+
+// Sum over 4 k of min(a, b), in k order.
+__device__ __forceinline__ float minsum4(float acc, float4 a, float4 b) {
+    acc += fminf(a.x, b.x);
+    acc += fminf(a.y, b.y);
+    acc += fminf(a.z, b.z);
+    return acc + fminf(a.w, b.w);
 }
 
 __global__ void __launch_bounds__(NT, MINPLUS_MIN_BLOCKS)
-minplus_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
-               int m, int n, int k, int lda, int ldb, float* __restrict__ workspace,
+minplus_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+               float* __restrict__ out, int m, int n, int k, float* __restrict__ workspace,
                int* __restrict__ counters, int dp_tiles, int splits) {
-    extern __shared__ __align__(16) float smem[];
-    __shared__ int s_last;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t ring = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms are 1024-byte aligned
+    const unsigned char* smem = smem_raw + (ring - raw);
+    const uint32_t bars = ring + STAGES * STAGE_BYTES;
+    int* s_last = reinterpret_cast<int*>(smem_raw + (bars - raw) + 8 * STAGES);
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
-    const int am = (warp & 3) * 32 + (lane >> 3) * 4;  // first of the thread's rows
-    const int bn = (warp >> 2) * (BN / 2) + (lane & 7) * 4;  // first of the thread's columns
+    const int tm = lane >> 3;
+    const int tn = lane & 7;
+    // The thread's rows of the [row][k] slabs: A rows a_row + 4 r (r < 8) and
+    // B rows b_row + 8 q (q < RN). In the 128-byte swizzle, 16-byte group g of
+    // row r sits at group g ^ (r % 8): the 8 B rows a warp reads at once have
+    // r % 8 = tn and the 4 A rows r % 8 = tm or tm + 4, so both reads are
+    // conflict-free.
+    const int a_row = (warp & 3) * 32 + tm;
+    const int b_row = (warp >> 2) * (BN / 2) + tn;
+
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) mbar_init(bars + 8 * s, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
     const int tiles_m = (m + BM - 1) / BM;
     const int tiles = tiles_m * ((n + BN - 1) / BN);
     const int chunks = (k + BK - 1) / BK;
     const int units = dp_tiles + (tiles - dp_tiles) * splits;
+    uint32_t used = 0;  // chunks this block has taken from the ring so far
 
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
         // unit -> (tile, k-chunk range); split units of one tile are adjacent
@@ -184,11 +199,15 @@ minplus_kernel(const float* __restrict__ a, const float* __restrict__ b, float* 
         }
         const int row0 = (tile % tiles_m) * BM;
         const int col0 = (tile / tiles_m) * BN;
-        const float* ta = a + static_cast<int64_t>(row0) * lda;
-        const float* tb = b + static_cast<int64_t>(col0) * ldb;
-        const int rows_a = m - row0;
-        const int rows_b = n - col0;
         const int nc = c_end - c_begin;
+
+        // thread 0 fills ring slot (used + i) % STAGES with the unit's chunk i
+        if (tid == 0)
+            for (int s = 0; s < STAGES - 1 && s < nc; ++s) {
+                const uint32_t slot = (used + s) % STAGES;
+                load_chunk(ring + slot * STAGE_BYTES, bars + 8 * slot, &map_a, &map_b, c_begin + s,
+                           row0, col0);
+            }
 
         float acc[8][RN];
 #pragma unroll
@@ -196,50 +215,35 @@ minplus_kernel(const float* __restrict__ a, const float* __restrict__ b, float* 
 #pragma unroll
             for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
 
-#pragma unroll
-        for (int s = 0; s < STAGES - 1; ++s) {
-            if (s < nc)
-                load_chunk(smem + s * STAGE, ta, tb, lda, ldb, rows_a, rows_b, k, c_begin + s, tid);
-            cp_async_commit();
-        }
-
-        int stage = 0;
         for (int i = 0; i < nc; ++i) {
-            cp_async_wait<STAGES - 2>();
-            __syncthreads();  // chunk i has landed; every thread is done with chunk i - 1
-            {
-                const int nxt = i + STAGES - 1;
-                int slot = stage + STAGES - 1;
-                if (slot >= STAGES) slot -= STAGES;
-                if (nxt < nc)
-                    load_chunk(smem + slot * STAGE, ta, tb, lda, ldb, rows_a, rows_b, k,
-                               c_begin + nxt, tid);
-                cp_async_commit();
+            const uint32_t slot = (used + i) % STAGES;
+            mbar_wait(bars + 8 * slot, ((used + i) / STAGES) & 1);
+            __syncthreads();  // every thread is done with chunk i - 1, whose slot the next copy fills
+            if (tid == 0 && i + STAGES - 1 < nc) {
+                const uint32_t next = (used + i + STAGES - 1) % STAGES;
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                load_chunk(ring + next * STAGE_BYTES, bars + 8 * next, &map_a, &map_b,
+                           c_begin + i + STAGES - 1, row0, col0);
             }
-            const float* as = smem + stage * STAGE + am;
-            const float* bs = smem + stage * STAGE + SLAB_A + bn;
-#pragma unroll UNROLL
-            for (int kk = 0; kk < BK; ++kk) {
-                float av[8], bv[RN];
-#pragma unroll
-                for (int g = 0; g < 2; ++g) {
-                    const float4 x = *reinterpret_cast<const float4*>(as + kk * LDA + 16 * g);
-                    av[4 * g] = x.x, av[4 * g + 1] = x.y, av[4 * g + 2] = x.z, av[4 * g + 3] = x.w;
-                }
-#pragma unroll
-                for (int g = 0; g < RN / 4; ++g) {
-                    const float4 x = *reinterpret_cast<const float4*>(bs + kk * LDB + 32 * g);
-                    bv[4 * g] = x.x, bv[4 * g + 1] = x.y, bv[4 * g + 2] = x.z, bv[4 * g + 3] = x.w;
-                }
+            const unsigned char* as = smem + slot * STAGE_BYTES + a_row * 128;
+            const unsigned char* bs = smem + slot * STAGE_BYTES + A_BYTES + b_row * 128;
+#pragma unroll QUADS_UNROLLED
+            for (int g = 0; g < BK / 4; ++g) {
+                float4 av[8];
 #pragma unroll
                 for (int r = 0; r < 8; ++r)
+                    av[r] = *reinterpret_cast<const float4*>(
+                        as + r * 512 + ((g ^ (tm + 4 * (r & 1))) << 4));
 #pragma unroll
-                    for (int q = 0; q < RN; ++q) acc[r][q] += fminf(av[r], bv[q]);
+                for (int q = 0; q < RN; ++q) {
+                    const float4 bv = *reinterpret_cast<const float4*>(bs + q * 1024 + ((g ^ tn) << 4));
+#pragma unroll
+                    for (int r = 0; r < 8; ++r) acc[r][q] = minsum4(acc[r][q], av[r], bv);
+                }
             }
-            if (++stage == STAGES) stage = 0;
         }
-        cp_async_wait<0>();
-        __syncthreads();  // the next unit's prologue overwrites the ring
+        used += nc;
+        __syncthreads();  // the next unit's first copies overwrite the ring
 
         if (u >= dp_tiles && splits > 1) {
             // park this part; the last part of the tile to arrive sums them all
@@ -253,9 +257,9 @@ minplus_kernel(const float* __restrict__ a, const float* __restrict__ b, float* 
                            acc[r][q]);
             __threadfence();
             __syncthreads();
-            if (tid == 0) s_last = atomicAdd(counters + tail, 1) == splits - 1;
+            if (tid == 0) *s_last = atomicAdd(counters + tail, 1) == splits - 1;
             __syncthreads();
-            if (!s_last) continue;
+            if (!*s_last) continue;
             __threadfence();
 #pragma unroll
             for (int r = 0; r < 8; ++r)
@@ -270,16 +274,47 @@ minplus_kernel(const float* __restrict__ a, const float* __restrict__ b, float* 
 
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
-            const int row = row0 + am + (r & 3) + (r >> 2) * 16;
+            const int row = row0 + a_row + 4 * r;
             if (row >= m) continue;
             float* orow = out + static_cast<int64_t>(row) * n;
 #pragma unroll
             for (int q = 0; q < RN; ++q) {
-                const int col = col0 + bn + (q & 3) + (q >> 2) * 32;
+                const int col = col0 + b_row + 8 * q;
                 if (col < n) orow[col] = acc[r][q];
             }
         }
     }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has loaded;
+// looked up at run time so the library links against the runtime alone.
+EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* cuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+        if (cuda == nullptr) cuda = dlopen("libcuda.so.1", RTLD_NOW);
+        if (cuda != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(cuda, "cuTensorMapEncodeTiled"));
+    }
+    return fn;
+}
+
+// The TMA map of a (rows, k) fp32 operand with row stride ld floats: boxes
+// of BK x box_rows, 128-byte swizzle, zero fill out of bounds.
+bool encode(CUtensorMap* map, const float* x, int rows, int k, int ld, int box_rows) {
+    const EncodeTiled fn = encoder();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
+    const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t elem[2] = {1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -302,18 +337,24 @@ extern "C" int grl_minplus_config(int* cfg) {
 
 // Plain C entry point for ctypes. Launches `grid` persistent blocks on
 // `stream` (PyTorch's current stream), does not synchronize, and returns
-// cudaGetLastError() so a refused launch is reported to the caller.
-// m, n >= 1, k >= 0, lda >= k, ldb >= k. Tiles [0, dp_tiles) run whole; the
-// rest run in `splits` k-parts, which need `workspace` (tiles - dp_tiles) x
-// splits x BM x BN floats and `counters` (tiles - dp_tiles) zeroed ints
-// (both unused, and may be null, when splits == 1).
+// cudaGetLastError() so a refused launch is reported to the caller, or
+// cudaErrorInvalidValue when an operand cannot be described to TMA.
+// m, n >= 1, k >= 0. When k > 0, a and b are 16-byte aligned with row
+// strides lda, ldb >= k that are multiples of 4 floats. Tiles [0, dp_tiles)
+// run whole; the rest run in `splits` k-parts, which need `workspace`
+// (tiles - dp_tiles) x splits x BM x BN floats and `counters`
+// (tiles - dp_tiles) zeroed ints (both unused, and may be null, when
+// splits == 1).
 extern "C" int grl_minplus_f32(const float* a, const float* b, float* out, int m, int n, int k,
                                int lda, int ldb, float* workspace, int* counters, int grid,
                                int dp_tiles, int splits, void* stream) {
+    CUtensorMap map_a = {}, map_b = {};
+    if (k > 0 && !(encode(&map_a, a, m, k, lda, BM) && encode(&map_b, b, n, k, ldb, BN)))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaFuncSetAttribute(minplus_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     minplus_kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-        a, b, out, m, n, k, lda, ldb, workspace, counters, dp_tiles, splits);
+        map_a, map_b, out, m, n, k, workspace, counters, dp_tiles, splits);
     return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,7 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import minplus
+from ..ops import minplus, padded_empty
 
 
 def warn_if_degenerate(n_total, k1=20, k2=6):
@@ -56,7 +56,9 @@ def nearest(original):
 
 
 def v_from_original(original, k1, k2):
-    """Normalized distance matrix (n, n) -> membership-weight matrix V."""
+    """Normalized distance matrix (n, n) -> membership-weight matrix V, in
+    rows padded to 16 bytes (``ops.padded_empty``) so the min-plus kernel
+    reads V and its query rows without a copy."""
     n = original.shape[0]
     order = nearest(original)
 
@@ -82,18 +84,19 @@ def v_from_original(original, k1, k2):
     expansion = reciprocal | (expanded > 0)
 
     weights = torch.exp(-original) * expansion
+    if k2 == 1:
+        return torch.div(weights, weights.sum(dim=1, keepdim=True), out=padded_empty(n, n, weights.device))
     v = weights / weights.sum(dim=1, keepdim=True)
-
-    if k2 != 1:
-        idx2 = order[:, : min(k2, n)]
-        last = idx2.shape[1] - 1
-        # summed in grl_tpu's order; an out-of-range column clamps as JAX's
-        # gather does (n < k2 only on toy sets)
-        acc = v[idx2[:, 0]]
-        for j in range(1, k2):
-            acc = acc + v[idx2[:, min(j, last)]]
-        v = acc / k2
-    return v
+    del weights  # each n x n temporary freed as soon as it is spent
+    idx2 = order[:, : min(k2, n)]
+    last = idx2.shape[1] - 1
+    # summed in grl_tpu's order; an out-of-range column clamps as JAX's
+    # gather does (n < k2 only on toy sets)
+    acc = v[idx2[:, 0]]
+    for j in range(1, k2):
+        acc = acc + v[idx2[:, min(j, last)]]
+    del v
+    return torch.div(acc, k2, out=padded_empty(n, n, acc.device))
 
 
 def re_ranking(q_g_dist, q_q_dist, g_g_dist, k1=20, k2=6, lambda_value=0.3, min_sum_fn=minplus):
@@ -109,7 +112,7 @@ def re_ranking(q_g_dist, q_q_dist, g_g_dist, k1=20, k2=6, lambda_value=0.3, min_
     original = original.square().to(torch.float32)
     original = (original / original.max(dim=0).values).T.contiguous()
     v = v_from_original(original, k1, k2)
-    min_sum = min_sum_fn(v[:query_num].contiguous(), v)
+    min_sum = min_sum_fn(v[:query_num], v)
     del v
     jaccard = 1.0 - min_sum / (2.0 - min_sum)
     final = jaccard * (1 - lambda_value) + original[:query_num] * lambda_value

@@ -4,8 +4,8 @@
 in ``wrapper.launches``.
 """
 
-from .minplus import minplus, minplus_plain
+from .minplus import minplus, minplus_plain, padded_empty
 
 KERNELS = {"minplus": minplus}
 
-__all__ = ["KERNELS", "minplus", "minplus_plain"]
+__all__ = ["KERNELS", "minplus", "minplus_plain", "padded_empty"]

@@ -95,8 +95,26 @@ def _config(device, lib=None):
     return _CONFIG[key]
 
 
-def launch(lib, a, b, lda, ldb):
+def padded_empty(rows, k, device=None):
+    """An uninitialized fp32 (rows, k) view whose row stride is k rounded up
+    to 4 floats (16 bytes): rows the kernel's TMA copies can read."""
+    return torch.empty((rows, -(-k // 4) * 4), dtype=torch.float32, device=device)[:, :k]
+
+
+def aligned(x):
+    """``x`` when the kernel's TMA copies can read it (16-byte aligned start
+    and row stride, rows not overlapping), else a copy in ``padded_empty``
+    rows: one read and one write of ``x`` (PERF.md gives the cost)."""
+    rows, k = x.shape
+    if k == 0 or (x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 and x.stride(0) >= k):
+        return x
+    return padded_empty(rows, k, x.device).copy_(x)
+
+
+def launch(lib, a, b):
     """Run the kernel of ``lib`` on checked CUDA operands; returns S."""
+    a, b = aligned(a), aligned(b)
+    lda, ldb = row_strides(a, b)
     m, k = a.shape
     n = b.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
@@ -122,8 +140,8 @@ def launch(lib, a, b, lda, ldb):
 
 
 def row_strides(a, b):
-    """``(lda, ldb)`` of (m, k) and (n, k) operands the kernel can read: unit
-    column stride, any row stride, every size in int32; raises otherwise."""
+    """``(lda, ldb)`` of (m, k) and (n, k) operands with a unit column
+    stride and every size in int32; raises otherwise."""
     k = a.shape[1]
     if k > 1 and (a.stride(1) != 1 or b.stride(1) != 1):
         raise ValueError(f"minplus takes operands with unit column stride; got {a.stride()}, {b.stride()}")
@@ -138,8 +156,10 @@ def minplus(a, b):
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
     ``minplus_plain``. On the card each operand needs a unit column stride;
-    its rows may be strided (a row slice or column slice of a wider
-    matrix). ``minplus.launches`` counts kernel launches."""
+    operands whose start or row stride is not 16-byte aligned are copied
+    into padded rows first (``aligned``), so a row or column slice of a
+    ``padded_empty`` matrix runs without a copy. ``minplus.launches``
+    counts kernel launches."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"minplus takes (m, k) and (n, k); got {tuple(a.shape)}, {tuple(b.shape)}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
@@ -150,7 +170,8 @@ def minplus(a, b):
         return minplus_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"minplus runs on CUDA or CPU tensors, not {a.device}")
-    out = launch(_lib(), a, b, *row_strides(a, b))
+    row_strides(a, b)
+    out = launch(_lib(), a, b)
     if out.numel():
         minplus.launches += 1
     return out

@@ -2,11 +2,13 @@
 
     git show <commit>:grl_tpu_torch/csrc/minplus.cu > build/ab/minplus_old.cu
     python3 -m grl_tpu_torch.tools.minplus_ab --old build/ab/minplus_old.cu \
-        --variant "MINPLUS_BN=256 MINPLUS_MIN_BLOCKS=1"
+        --variant "MINPLUS_BN=128 MINPLUS_MIN_BLOCKS=2"
 
-The earlier source has the first design's entry point,
-``grl_minplus_f32(a, b, out, m, n, k, stream)`` on contiguous operands. A
-variant is the current source built with other tile macros. Every build runs
+An ``--old`` source has the first design's entry point,
+``grl_minplus_f32(a, b, out, m, n, k, stream)`` on contiguous operands; a
+``--source`` has the current ones (``grl_minplus_config`` and the strided,
+scheduled ``grl_minplus_f32``). A variant is the current source built with
+other tile macros. Every build runs
 at the same shape on the same inputs, in the order old, new, variants, then
 back (``--turns`` times), each turn timed over ``--reps`` launches with CUDA
 events; the card's name, power limit, clocks and power draw are sampled
@@ -16,7 +18,7 @@ raises if a build disagrees with the current one by more than 1e-5.
 A probe (``--probe "MACROS :: EDIT || EDIT ..."``) is a copy of the
 current source, written under ``build/``, with each EDIT applied: ``OLD =>
 NEW`` replaces a text of the source, and a bare STATEMENT replaces the inner
-statement ``acc[r][q] += fminf(av[r], bv[q]);``. It shows what one part of
+statement ``acc[r][q] = minsum4(acc[r][q], av[r], bv);``. It shows what one part of
 the kernel costs: another instruction mix in the same loop (two FADDs, two
 FMNMXs), no staging copies, fewer shared-memory reads. Probes compute
 another function and are timed, not checked.
@@ -33,10 +35,10 @@ from pathlib import Path
 import torch
 
 from ..ops.build import BUILD_INFO, CSRC, load_library
-from ..ops.minplus import _lib, launch, minplus
+from ..ops.minplus import _lib, launch, minplus, padded_empty
 
 TOL = 1e-5  # fp32 sums of row-normalized values (≤ 1) in another order
-STATEMENT = "acc[r][q] += fminf(av[r], bv[q]);"
+STATEMENT = "acc[r][q] = minsum4(acc[r][q], av[r], bv);"
 PROBE_DIR = Path(__file__).resolve().parents[2] / "build" / "minplus_probe"
 
 
@@ -76,6 +78,8 @@ def timed(fn, reps):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--old", help="earlier minplus.cu (first design's entry point) to build and time")
+    p.add_argument("--source", action="append", default=[],
+                   help="earlier minplus.cu with the current entry points, to build and time")
     p.add_argument("--variant", action="append", default=[],
                    help="space-separated NAME=VALUE macros for a build of the current source")
     p.add_argument("--probe", action="append", default=[],
@@ -89,19 +93,24 @@ def main(argv=None):
 
     m, n, k = args.shape
     gen = torch.Generator(device="cuda").manual_seed(0)
-    a = torch.rand(m, k, device="cuda", generator=gen)
+    # row-normalized, in 16-byte aligned rows as re-ranking builds V
+    a, b = (padded_empty(rows, k, "cuda").copy_(torch.rand(rows, k, device="cuda", generator=gen))
+            for rows in (m, n))
     a /= a.sum(dim=1, keepdim=True)
-    b = torch.rand(n, k, device="cuda", generator=gen)
     b /= b.sum(dim=1, keepdim=True)
 
     runs = {}
     if args.old:
         old = old_kernel(args.old)
-        runs["old"] = lambda: old(a, b)
+        a_dense, b_dense = a.contiguous(), b.contiguous()  # the first design's operands
+        runs["old"] = lambda: old(a_dense, b_dense)
+    for i, path in enumerate(args.source):
+        lib = _lib(f"minplus_s{i}", (), source=str(Path(path).resolve()))
+        runs[f"source: {path}"] = lambda lib=lib: launch(lib, a, b)
     runs["new"] = lambda: minplus(a, b)
     for i, defines in enumerate(args.variant):
         lib = _lib(f"minplus_v{i}", tuple(defines.split()))
-        runs[defines] = lambda lib=lib: launch(lib, a, b, k, k)
+        runs[defines] = lambda lib=lib: launch(lib, a, b)
     want = minplus(a, b)
     diffs = {name: float((fn() - want).abs().max()) for name, fn in runs.items()}
     source = (CSRC / "minplus.cu").read_text()
@@ -117,7 +126,7 @@ def main(argv=None):
         path = PROBE_DIR / f"probe{i}.cu"
         path.write_text(text)
         lib = _lib(f"minplus_p{i}", tuple(defines.split()), source=path)
-        runs[f"probe: {spec}"] = lambda lib=lib: launch(lib, a, b, k, k)
+        runs[f"probe: {spec}"] = lambda lib=lib: launch(lib, a, b)
         runs[f"probe: {spec}"]()
     torch.cuda.synchronize()
     ptxas = {name: [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]

@@ -13,8 +13,8 @@ import torch
 
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
 from grl_tpu_torch.engine.rerank import re_ranking
-from grl_tpu_torch.ops import minplus, minplus_plain
-from grl_tpu_torch.ops.minplus import _config, schedule
+from grl_tpu_torch.ops import minplus, minplus_plain, padded_empty
+from grl_tpu_torch.ops.minplus import _config, aligned, schedule
 
 pytestmark = pytest.mark.cuda
 
@@ -112,9 +112,19 @@ def test_minplus_kernel_split_tiles_are_deterministic(gen):
     torch.testing.assert_close(minplus(a, b), first, rtol=0, atol=0)
 
 
-def test_minplus_row_strided_views_match_contiguous(gen):
-    wide_a, wide_b = row_normalized(70, 1003, gen), row_normalized(150, 1003, gen)
-    a, b = wide_a[:, 1:1000], wide_b[3:, :999]  # row strides 1003, unit column stride
+@pytest.mark.parametrize("padded", [False, True])
+def test_minplus_row_strided_views_match_contiguous(gen, padded):
+    """Views of wider matrices: misaligned ones are copied into padded rows,
+    16-byte aligned ones (``padded_empty``) are read in place."""
+    if padded:
+        wide_a, wide_b = padded_empty(70, 999, "cuda"), padded_empty(150, 999, "cuda")
+        wide_a.copy_(row_normalized(70, 999, gen)), wide_b.copy_(row_normalized(150, 999, gen))
+        a, b = wide_a, wide_b[3:]  # row stride 1000
+        assert aligned(a) is a and aligned(b) is b
+    else:
+        wide_a, wide_b = row_normalized(70, 1003, gen), row_normalized(150, 1003, gen)
+        a, b = wide_a[:, 1:1000], wide_b[3:, :999]  # row strides 1003, a starts 4 bytes in
+        assert aligned(a) is not a and aligned(b) is not b
     assert not a.is_contiguous() and not b.is_contiguous()
     got = minplus(a, b)
     torch.testing.assert_close(got, minplus(a.contiguous(), b.contiguous()), rtol=0, atol=0)

@@ -6,7 +6,7 @@ import torch
 
 from grl_tpu.ops import minplus_matmul
 from grl_tpu_torch.ops import minplus, minplus_plain
-from grl_tpu_torch.ops.minplus import MAX_SPLITS, row_strides, schedule
+from grl_tpu_torch.ops.minplus import MAX_SPLITS, aligned, padded_empty, row_strides, schedule
 
 CASES = {
     # the dense and the ragged (non-tile-multiple m, n, k) cases of test_ops.py
@@ -157,3 +157,21 @@ def test_wrapper_on_cpu_takes_strided_views():
     a, b = wide[:7, 1:40], wide[5:, :39]
     torch.testing.assert_close(minplus(a, b), minplus_plain(a.contiguous(), b.contiguous()),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [1, 4, 13290])
+def test_padded_empty_rows_are_16_byte_aligned(k):
+    x = padded_empty(3, k)
+    assert x.shape == (3, k) and x.stride(1) == 1 and x.stride(0) % 4 == 0 and x.stride(0) >= k
+    assert x.data_ptr() % 16 == 0
+
+
+def test_aligned_copies_only_what_the_kernel_cannot_read():
+    dense = torch.rand(5, 8)  # row stride 8: readable in place
+    rows, empty = dense[1:], dense[:, 1:1]  # 32 bytes in; k = 0 reads nothing
+    assert aligned(dense) is dense and aligned(rows) is rows and aligned(empty) is empty
+    for x in (torch.rand(5, 7), dense[:, 1:], torch.rand(1, 8).expand(5, 8)):
+        # stride 7, a start 4 bytes in, overlapping rows
+        y = aligned(x)
+        assert y is not x and y.stride(0) % 4 == 0 and y.data_ptr() % 16 == 0
+        torch.testing.assert_close(y, x, rtol=0, atol=0)

@@ -16,7 +16,9 @@ from grl_tpu.engine.evaluator import cosine_distance as j_cosine
 from grl_tpu.engine.rerank import re_ranking_device
 from grl_tpu_torch.engine import metrics as tmetrics
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
-from grl_tpu_torch.engine.rerank import nearest, re_ranking, warn_if_degenerate
+from grl_tpu.engine.rerank import _v_from_original as j_v_from_original
+from grl_tpu_torch.engine.rerank import nearest, re_ranking, v_from_original, warn_if_degenerate
+from grl_tpu_torch.ops.minplus import aligned
 
 
 def _synthetic_dists(q, g, dim=32, seed=0):
@@ -121,3 +123,19 @@ def test_degenerate_scale_warning(capsys):
     assert "WARNING" in capsys.readouterr().err
     assert not warn_if_degenerate(11310, k1=20)
     assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("k2", [1, 6])
+def test_v_is_built_in_16_byte_rows_and_matches_grl_tpu(k2):
+    """V comes in rows padded to 4 floats, so the kernel reads V and its
+    query rows in place, with grl_tpu's values."""
+    qg, qq, gg = _synthetic_dists(25, 90)
+    original = np.concatenate([np.concatenate([qq, qg], 1), np.concatenate([qg.T, gg], 1)]) ** 2
+    original = (original / original.max(0)).T.astype(np.float32)
+    v = v_from_original(torch.from_numpy(original.copy()), 20, k2)
+    n = original.shape[0]
+    assert v.shape == (n, n) and v.stride() == (-(-n // 4) * 4, 1) and n % 4 != 0
+    query_rows = v[:25]
+    assert aligned(v) is v and aligned(query_rows) is query_rows
+    want = np.asarray(j_v_from_original(original, 20, k2))
+    np.testing.assert_allclose(v.numpy(), want, rtol=1e-5, atol=1e-6)
