@@ -58,7 +58,8 @@
 //    stalls; `ncu` does not run where this was measured).
 // The tile is 128 x 256 at one block per SM (8 x 16 accumulators per
 // thread), 3 stages, 8 k-steps unrolled: the fastest of the variants timed
-// by grl_tpu_torch/tools/minplus_ab.py, which builds the MINPLUS_* macros.
+// on the card (128 x 128 at two blocks per SM, 2 or 4 stages, unroll 4 or
+// 16 were slower; PERF.md).
 
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums
@@ -67,23 +68,10 @@
 
 namespace {
 
-#ifndef MINPLUS_BN
-#define MINPLUS_BN 256    // rows of B per tile: 128 (8x8 per thread) or 256 (8x16)
-#endif
-#ifndef MINPLUS_MIN_BLOCKS
-#define MINPLUS_MIN_BLOCKS 1  // resident blocks per SM that the register budget targets
-#endif
-#ifndef MINPLUS_STAGES
-#define MINPLUS_STAGES 3  // k-chunks in the shared-memory ring
-#endif
-#ifndef MINPLUS_UNROLL
-#define MINPLUS_UNROLL 8  // k-steps unrolled in the inner loop (a multiple of 4)
-#endif
-
 constexpr int BM = 128;              // rows of A per tile
-constexpr int BN = MINPLUS_BN;       // rows of B per tile
+constexpr int BN = 256;              // rows of B per tile
 constexpr int BK = 32;               // k-chunk per pipeline stage: one 128-byte row per operand row
-constexpr int STAGES = MINPLUS_STAGES;
+constexpr int STAGES = 3;            // k-chunks in the shared-memory ring
 constexpr int NT = 256;              // threads per block: 8 warps, 4 (M) x 2 (N)
 constexpr int RN = BN / 16;          // B rows (output columns) per thread
 constexpr int A_BYTES = BM * BK * 4;
@@ -92,10 +80,8 @@ constexpr int STAGE_BYTES = (BM + BN) * BK * 4;
 // ring's mbarriers and the split-k flag
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 8 * STAGES + 16;
 constexpr int TILE = BM * BN;        // floats of one partial tile in the workspace
-constexpr int QUADS_UNROLLED = MINPLUS_UNROLL / 4;
 static_assert(BK * 4 == 128, "a chunk row is one 128-byte swizzle row");
-static_assert(BN == 128 || BN == 256, "a warp covers 32 x BN / 2 outputs; a TMA box is <= 256 rows");
-static_assert(MINPLUS_UNROLL % 4 == 0, "the loop steps over 4-k quads");
+static_assert(BN <= 256, "a TMA box is at most 256 rows");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -151,7 +137,7 @@ __device__ __forceinline__ float minsum4(float acc, float4 a, float4 b) {
     return acc + fminf(a.w, b.w);
 }
 
-__global__ void __launch_bounds__(NT, MINPLUS_MIN_BLOCKS)
+__global__ void __launch_bounds__(NT, 1)
 minplus_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                float* __restrict__ out, int m, int n, int k, float* __restrict__ workspace,
                int* __restrict__ counters, int dp_tiles, int splits) {
@@ -227,7 +213,7 @@ minplus_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
             }
             const unsigned char* as = smem + slot * STAGE_BYTES + a_row * 128;
             const unsigned char* bs = smem + slot * STAGE_BYTES + A_BYTES + b_row * 128;
-#pragma unroll QUADS_UNROLLED
+#pragma unroll 2  // two 4-k quads: 8 k-steps per unrolled body
             for (int g = 0; g < BK / 4; ++g) {
                 float4 av[8];
 #pragma unroll
@@ -321,7 +307,8 @@ bool encode(CUtensorMap* map, const float* x, int rows, int k, int ld, int box_r
 
 // Tile shape and block slots per SM, for the wrapper's schedule:
 // cfg = {BM, BN, BK, blocks per SM}. Sets the kernel's dynamic shared-memory
-// limit on the current device. Returns a CUDA error code.
+// limit on the current device, which grl_minplus_f32 needs: call this once
+// per device before launching there. Returns a CUDA error code.
 extern "C" int grl_minplus_config(int* cfg) {
     cudaError_t err = cudaFuncSetAttribute(minplus_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -336,7 +323,8 @@ extern "C" int grl_minplus_config(int* cfg) {
 }
 
 // Plain C entry point for ctypes. Launches `grid` persistent blocks on
-// `stream` (PyTorch's current stream), does not synchronize, and returns
+// `stream` (PyTorch's current stream; grl_minplus_config has run on its
+// device), does not synchronize, and returns
 // cudaGetLastError() so a refused launch is reported to the caller, or
 // cudaErrorInvalidValue when an operand cannot be described to TMA.
 // m, n >= 1, k >= 0. When k > 0, a and b are 16-byte aligned with row
@@ -351,9 +339,6 @@ extern "C" int grl_minplus_f32(const float* a, const float* b, float* out, int m
     CUtensorMap map_a = {}, map_b = {};
     if (k > 0 && !(encode(&map_a, a, m, k, lda, BM) && encode(&map_b, b, n, k, ldb, BN)))
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(minplus_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
     minplus_kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
         map_a, map_b, out, m, n, k, workspace, counters, dp_tiles, splits);
     return static_cast<int>(cudaGetLastError());

@@ -43,14 +43,12 @@ def _nvcc():
     return found
 
 
-def load_library(name, sources, defines=()):
-    """Build (if needed) and load ``csrc/<sources>`` as one library;
-    ``defines`` are extra ``-D`` macros (``"NAME=VALUE"``)."""
+def load_library(name, sources):
+    """Build (if needed) and load ``csrc/<sources>`` as one library."""
     if name in _LIBS:
         return _LIBS[name]
     paths = [CSRC / s for s in sources]
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    digest = hashlib.sha256(" ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
         digest.update(p.read_bytes())
     so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -59,7 +57,7 @@ def load_library(name, sources, defines=()):
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

@@ -63,10 +63,9 @@ def schedule(m, n, k, tile, slots):
     return grid, dp_tiles, splits
 
 
-def _lib(name="minplus", defines=(), source="minplus.cu"):
-    """The kernel's library; ``defines`` (its tile macros) or another
-    ``source`` build a variant under another ``name``."""
-    lib = load_library(name, [source], defines)
+def _lib():
+    """The kernel's library, built at first use."""
+    lib = load_library("minplus", ["minplus.cu"])
     lib.grl_minplus_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.grl_minplus_f32.restype = ctypes.c_int
@@ -75,24 +74,23 @@ def _lib(name="minplus", defines=(), source="minplus.cu"):
     return lib
 
 
-_CONFIG = {}  # (library, device index) -> (tile, slots)
+_CONFIG = {}  # device index -> (tile, slots)
 
 
-def _config(device, lib=None):
-    """The kernel's tile and the card's block slots, queried once per card."""
-    lib = lib or _lib()
+def _config(device):
+    """The kernel's tile and the card's block slots, queried once per card
+    (the query also sets the kernel's shared-memory limit there)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (lib._name, index)
-    if key not in _CONFIG:
+    if index not in _CONFIG:
         cfg = (ctypes.c_int * 4)()
         with torch.cuda.device(index):
-            err = lib.grl_minplus_config(cfg)
+            err = _lib().grl_minplus_config(cfg)
         if err != 0 or cfg[3] < 1:
             raise RuntimeError(f"minplus kernel cannot be resident on {device}: "
                                f"CUDA error {err}, {cfg[3]} blocks per SM")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        _CONFIG[key] = ((cfg[0], cfg[1], cfg[2]), sms * cfg[3])
-    return _CONFIG[key]
+        _CONFIG[index] = ((cfg[0], cfg[1], cfg[2]), sms * cfg[3])
+    return _CONFIG[index]
 
 
 def padded_empty(rows, k, device=None):
@@ -111,8 +109,8 @@ def aligned(x):
     return padded_empty(rows, k, x.device).copy_(x)
 
 
-def launch(lib, a, b):
-    """Run the kernel of ``lib`` on checked CUDA operands; returns S."""
+def _launch(a, b):
+    """Run the kernel on checked CUDA operands and count the launch; returns S."""
     a, b = aligned(a), aligned(b)
     lda, ldb = row_strides(a, b)
     m, k = a.shape
@@ -121,7 +119,7 @@ def launch(lib, a, b):
     if m == 0 or n == 0:
         return out
     with torch.cuda.device(a.device):
-        tile, slots = _config(a.device, lib)
+        tile, slots = _config(a.device)
         grid, dp_tiles, splits = schedule(m, n, k, tile, slots)
         workspace = counters = None
         if splits > 1:
@@ -130,12 +128,13 @@ def launch(lib, a, b):
                                     device=a.device)
             counters = torch.zeros(tail, dtype=torch.int32, device=a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.grl_minplus_f32(
+        err = _lib().grl_minplus_f32(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, lda, ldb,
             workspace.data_ptr() if splits > 1 else None,
             counters.data_ptr() if splits > 1 else None, grid, dp_tiles, splits, stream)
     if err != 0:
         raise RuntimeError(f"minplus kernel launch failed: CUDA error {err}")
+    minplus.launches += 1
     return out
 
 
@@ -171,10 +170,7 @@ def minplus(a, b):
     if a.device.type != "cuda":
         raise ValueError(f"minplus runs on CUDA or CPU tensors, not {a.device}")
     row_strides(a, b)
-    out = launch(_lib(), a, b)
-    if out.numel():
-        minplus.launches += 1
-    return out
+    return _launch(a, b)
 
 
 minplus.launches = 0

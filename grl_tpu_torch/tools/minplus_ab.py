@@ -1,27 +1,15 @@
-"""Time the min-plus kernel against an earlier source and variants of it, in turns on one card.
+"""Time the min-plus kernel against the first design's source, in turns on one card.
 
     git show <commit>:grl_tpu_torch/csrc/minplus.cu > build/ab/minplus_old.cu
-    python3 -m grl_tpu_torch.tools.minplus_ab --old build/ab/minplus_old.cu \
-        --variant "MINPLUS_BN=128 MINPLUS_MIN_BLOCKS=2"
+    python3 -m grl_tpu_torch.tools.minplus_ab --old build/ab/minplus_old.cu
 
-An ``--old`` source has the first design's entry point,
-``grl_minplus_f32(a, b, out, m, n, k, stream)`` on contiguous operands; a
-``--source`` has the current ones (``grl_minplus_config`` and the strided,
-scheduled ``grl_minplus_f32``). A variant is the current source built with
-other tile macros. Every build runs
-at the same shape on the same inputs, in the order old, new, variants, then
-back (``--turns`` times), each turn timed over ``--reps`` launches with CUDA
-events; the card's name, power limit, clocks and power draw are sampled
-beside the turns. Prints one JSON line per turn and a summary line, and
-raises if a build disagrees with the current one by more than 1e-5.
-
-A probe (``--probe "MACROS :: EDIT || EDIT ..."``) is a copy of the
-current source, written under ``build/``, with each EDIT applied: ``OLD =>
-NEW`` replaces a text of the source, and a bare STATEMENT replaces the inner
-statement ``acc[r][q] = minsum4(acc[r][q], av[r], bv);``. It shows what one part of
-the kernel costs: another instruction mix in the same loop (two FADDs, two
-FMNMXs), no staging copies, fewer shared-memory reads. Probes compute
-another function and are timed, not checked.
+The ``--old`` source has the first design's entry point,
+``grl_minplus_f32(a, b, out, m, n, k, stream)`` on contiguous operands.
+Both builds run at the same shape on the same inputs, in the order old,
+new, new, old (``--turns`` times), each turn timed over ``--reps`` launches
+with CUDA events; the card's name, power limit, clocks and power draw are
+sampled beside the turns. Prints one JSON line per turn and a summary
+line, and raises if the two disagree by more than 1e-5.
 """
 
 from __future__ import annotations
@@ -34,12 +22,10 @@ from pathlib import Path
 
 import torch
 
-from ..ops.build import BUILD_INFO, CSRC, load_library
-from ..ops.minplus import _lib, launch, minplus, padded_empty
+from ..ops.build import BUILD_INFO, load_library
+from ..ops.minplus import minplus, padded_empty
 
 TOL = 1e-5  # fp32 sums of row-normalized values (≤ 1) in another order
-STATEMENT = "acc[r][q] = minsum4(acc[r][q], av[r], bv);"
-PROBE_DIR = Path(__file__).resolve().parents[2] / "build" / "minplus_probe"
 
 
 def smi(query):
@@ -77,13 +63,7 @@ def timed(fn, reps):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--old", help="earlier minplus.cu (first design's entry point) to build and time")
-    p.add_argument("--source", action="append", default=[],
-                   help="earlier minplus.cu with the current entry points, to build and time")
-    p.add_argument("--variant", action="append", default=[],
-                   help="space-separated NAME=VALUE macros for a build of the current source")
-    p.add_argument("--probe", action="append", default=[],
-                   help='"MACROS :: EDIT || ...", EDIT = "OLD => NEW" or an inner statement: timed only')
+    p.add_argument("--old", required=True, help="the first design's minplus.cu to build and time")
     p.add_argument("--shape", type=int, nargs=3, default=[1980, 13290, 13290], metavar=("M", "N", "K"))
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--turns", type=int, default=2)
@@ -99,54 +79,27 @@ def main(argv=None):
     a /= a.sum(dim=1, keepdim=True)
     b /= b.sum(dim=1, keepdim=True)
 
-    runs = {}
-    if args.old:
-        old = old_kernel(args.old)
-        a_dense, b_dense = a.contiguous(), b.contiguous()  # the first design's operands
-        runs["old"] = lambda: old(a_dense, b_dense)
-    for i, path in enumerate(args.source):
-        lib = _lib(f"minplus_s{i}", (), source=str(Path(path).resolve()))
-        runs[f"source: {path}"] = lambda lib=lib: launch(lib, a, b)
-    runs["new"] = lambda: minplus(a, b)
-    for i, defines in enumerate(args.variant):
-        lib = _lib(f"minplus_v{i}", tuple(defines.split()))
-        runs[defines] = lambda lib=lib: launch(lib, a, b)
-    want = minplus(a, b)
-    diffs = {name: float((fn() - want).abs().max()) for name, fn in runs.items()}
-    source = (CSRC / "minplus.cu").read_text()
-    PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    for i, spec in enumerate(args.probe):
-        defines, edits = (x.strip() for x in spec.split("::"))
-        text = source
-        for edit in edits.split("||"):
-            old, new = edit.split("=>") if "=>" in edit else (STATEMENT, edit)
-            if old.strip() not in text:
-                raise ValueError(f"probe {spec!r}: {old.strip()!r} is not in csrc/minplus.cu")
-            text = text.replace(old.strip(), new.strip())
-        path = PROBE_DIR / f"probe{i}.cu"
-        path.write_text(text)
-        lib = _lib(f"minplus_p{i}", tuple(defines.split()), source=path)
-        runs[f"probe: {spec}"] = lambda lib=lib: launch(lib, a, b)
-        runs[f"probe: {spec}"]()
+    old = old_kernel(args.old)
+    a_dense, b_dense = a.contiguous(), b.contiguous()  # the first design's operands
+    runs = {"old": lambda: old(a_dense, b_dense), "new": lambda: minplus(a, b)}
+    diff = float((runs["old"]() - runs["new"]()).abs().max())
     torch.cuda.synchronize()
     ptxas = {name: [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
              for name, info in BUILD_INFO.items()}
     print(json.dumps({"card": smi("name,power.limit"), "clocks_max_sm": smi("clocks.max.sm"),
-                      "shape": [m, n, k], "max_abs_diff_vs_new": diffs, "ptxas": ptxas}), flush=True)
-    bad = {name: d for name, d in diffs.items() if d > TOL}
-    if bad:
-        raise RuntimeError(f"builds disagree with the current minplus: {bad}")
+                      "shape": [m, n, k], "max_abs_diff_old_vs_new": diff, "ptxas": ptxas}), flush=True)
+    if diff > TOL:
+        raise RuntimeError(f"the old and new minplus disagree by {diff}")
 
-    order = list(runs)
-    times = {name: [] for name in order}
+    times = {name: [] for name in runs}
     for _ in range(args.turns):
-        for name in order + order[::-1]:
+        for name in ("old", "new", "new", "old"):
             ms = timed(runs[name], args.reps)
             times[name].append(ms)
             print(json.dumps({"turn": name, "ms": ms, "clocks_sm_power_draw": smi("clocks.sm,power.draw")}),
                   flush=True)
-    best = {name: min(v) for name, v in times.items()}
-    print(json.dumps({"summary": "minplus_ab", "shape": [m, n, k], "ms": times, "best_ms": best,
+    print(json.dumps({"summary": "minplus_ab", "shape": [m, n, k], "ms": times,
+                      "best_ms": {name: min(v) for name, v in times.items()},
                       "card": smi("name,power.limit")}), flush=True)
 
 

@@ -6,7 +6,8 @@ import torch
 
 from grl_tpu.ops import minplus_matmul
 from grl_tpu_torch.ops import minplus, minplus_plain
-from grl_tpu_torch.ops.minplus import MAX_SPLITS, aligned, padded_empty, row_strides, schedule
+from grl_tpu_torch.ops.minplus import (MAX_SPLITS, MIN_CHUNKS_PER_PART, aligned, padded_empty,
+                                       row_strides, schedule)
 
 CASES = {
     # the dense and the ragged (non-tile-multiple m, n, k) cases of test_ops.py
@@ -73,8 +74,10 @@ def test_schedule_cases(shape, want):
 
 
 def _units(m, n, k, tile, slots):
-    """The kernel's walk: every block's units as (tile, first chunk, end chunk),
-    as ``minplus_kernel`` derives them from ``schedule``."""
+    """A model of the kernel's walk, written after ``minplus_kernel``'s
+    decode of a unit into (tile, first chunk, end chunk): every block's
+    units for ``schedule``'s split. The walk itself runs only on the card
+    (tests/test_torch_cuda.py holds it to the plain version)."""
     grid, dp_tiles, splits = schedule(m, n, k, tile, slots)
     tiles = -(-m // tile[0]) * -(-n // tile[1])
     chunks = -(-k // tile[2])
@@ -97,6 +100,7 @@ def _units(m, n, k, tile, slots):
 @pytest.mark.parametrize("slots", [1, 7, 132, 264])
 @pytest.mark.parametrize("shape", [(1980, 13290, 13290), (129, 257, 1000), (3000, 700, 40), (5, 9, 17)])
 def test_schedule_covers_every_tile_chunk_once_and_balances(shape, slots):
+    """``schedule``'s split, walked as the kernel walks it (``_units``)."""
     m, n, k = shape
     grid, splits, walk = _units(m, n, k, TILE, slots)
     tiles = -(-m // TILE[0]) * -(-n // TILE[1])
@@ -114,32 +118,25 @@ def test_schedule_covers_every_tile_chunk_once_and_balances(shape, slots):
     assert max(load) - min(load) <= chunks
 
 
-def test_split_tiles_summed_in_fixed_order_match_plain():
-    """The decomposition the kernel runs, on the CPU: k-parts of split tiles
-    summed in part order 0, 1, ... agree with one pass at the kernel's
-    tolerance."""
-    rng = np.random.RandomState(1)
-    m, n, k, tile, slots = 40, 50, 300, (16, 32, 8), 5
-    a, b = (torch.from_numpy(rng.rand(r, k).astype(np.float32)) for r in (m, n))
-    a, b = a / a.sum(1, keepdim=True), b / b.sum(1, keepdim=True)
-    _, splits, walk = _units(m, n, k, tile, slots)
-    assert splits > 1
-    tiles_m = -(-m // tile[0])
-    parts = {}
-    for mine in walk:
-        for t, c0, c1 in mine:
-            r0, q0 = (t % tiles_m) * tile[0], (t // tiles_m) * tile[1]
-            ks = slice(c0 * tile[2], c1 * tile[2])
-            parts.setdefault(t, []).append(
-                (c0, minplus_plain(a[r0:r0 + tile[0], ks], b[q0:q0 + tile[1], ks])))
-    out = torch.empty(m, n)
-    for t, ps in parts.items():
-        r0, q0 = (t % tiles_m) * tile[0], (t // tiles_m) * tile[1]
-        acc = torch.zeros_like(ps[0][1])
-        for _, p in sorted(ps, key=lambda x: x[0]):
-            acc = acc + p
-        out[r0:r0 + tile[0], q0:q0 + tile[1]] = acc
-    torch.testing.assert_close(out, minplus_plain(a, b), rtol=0, atol=1e-5)
+@pytest.mark.parametrize("slots", [7, 132, 264])
+@pytest.mark.parametrize("shape", [(1980, 13290, 13290), (129, 257, 1000), (3000, 700, 40),
+                                   (128 * 12, 256 * 11, 64)])
+def test_schedule_splits_only_the_last_round_and_fills_it(shape, slots):
+    m, n, k = shape
+    grid, dp_tiles, splits = schedule(m, n, k, TILE, slots)
+    tiles = -(-m // TILE[0]) * -(-n // TILE[1])
+    chunks = -(-k // TILE[2])
+    rounds, tail = divmod(tiles, slots)
+    assert dp_tiles == rounds * slots and grid == (slots if rounds else tail * splits)
+    if not tail:
+        assert splits == 1
+        return
+    # the split round fits in one round of slots, each part keeps its pipeline busy,
+    # and one more part per tile would overflow the round or one of those limits
+    assert tail * splits <= slots and 1 <= splits <= MAX_SPLITS
+    assert splits == 1 or chunks // splits >= MIN_CHUNKS_PER_PART
+    assert (tail * (splits + 1) > slots or splits == MAX_SPLITS
+            or chunks // (splits + 1) < MIN_CHUNKS_PER_PART)
 
 
 def test_row_strides_take_row_slices_and_refuse_column_strides():
