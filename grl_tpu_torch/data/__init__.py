@@ -1,5 +1,7 @@
 from .catalogs import SyntheticVideoReID
 from .loader import ClipDataset, ClipLoader
-from .transforms import normalize
+from .sampling import RandomPairSampler
+from .transforms import augment, normalize
 
-__all__ = ["ClipDataset", "ClipLoader", "SyntheticVideoReID", "normalize"]
+__all__ = ["ClipDataset", "ClipLoader", "RandomPairSampler", "SyntheticVideoReID", "augment",
+           "normalize"]

@@ -2,9 +2,10 @@
 
 A copy of ``grl_tpu/data/loader.py``'s ``ClipDataset``/``ClipLoader`` for
 tracklets whose frames are uint8 arrays (the synthetic catalog and
-pre-decoded frames): a thread-pool stage gathers frames and a
-one-batch-ahead prefetch thread hands uint8 batches to the caller, which
-uploads and normalizes them on the device. JPEG path sources, the real
+pre-decoded frames): a thread-pool stage gathers frames and a prefetch
+thread hands uint8 batches to the caller, which uploads, augments and
+normalizes them on the device. Training batches come from a sampler
+(``RandomPairSampler``) with ``drop_last``. JPEG path sources, the real
 catalogs and ``get_data`` come with the data-plane slice.
 """
 
@@ -81,33 +82,59 @@ class ClipDataset:
 
 
 class ClipLoader:
-    """Batched iterator in catalog order, with threaded gather and prefetch.
+    """Batched iterator with threaded gather and prefetch.
 
+    Indices come from ``sampler`` when given, else catalog order (shuffled
+    with a ``RandomState(seed)`` when ``shuffle``). ``drop_last`` drops a
+    short last batch; ``max_batches`` caps the batches of an epoch.
     Yields ``(clips uint8 (b, S, h, w, 3), pids (b,), camids (b,))``;
     with ``sample='dense'`` batch_size must be 1 and clips are
     ``(n_clips, S, h, w, 3)``.
     """
 
-    def __init__(self, dataset: ClipDataset, batch_size=16, workers=4):
+    def __init__(self, dataset: ClipDataset, batch_size=16, sampler=None, shuffle=False,
+                 drop_last=False, workers=4, prefetch=2, seed=0, max_batches=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.sampler = sampler
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.workers = max(workers, 1)
+        self.prefetch = prefetch
+        self.rng = np.random.RandomState(seed)
+        self.max_batches = max_batches
         # epoch counter: salts the per-item sampling RNG so rrs_train and
         # random draws differ across epochs
         self._epoch = 0
         if dataset.sample == "dense" and batch_size != 1:
             raise ValueError("dense sampling requires batch_size=1")
 
+    def _indices(self):
+        if self.sampler is not None:
+            return list(iter(self.sampler))
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        return idx
+
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        # len(sampler), never a pass over it: iterating would consume the
+        # sampler's RNG and shift every later epoch's batches
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        n = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return n if self.max_batches is None else min(n, self.max_batches)
 
     def __iter__(self):
+        indices = self._indices()
         epoch = self._epoch
         self._epoch += 1
-        n = len(self.dataset)
-        batches = [list(range(i, min(i + self.batch_size, n))) for i in range(0, n, self.batch_size)]
+        batches = [indices[i : i + self.batch_size] for i in range(0, len(indices), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        if self.max_batches is not None:
+            batches = batches[: self.max_batches]
 
-        q = queue.Queue(maxsize=2)  # one batch ahead of the consumer, one in hand
+        q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         err = []
 

@@ -7,12 +7,13 @@ from .gce import GCEBackbone
 from .grl import GRLModel
 from .init import init_weights
 from .resnet import Bottleneck, ResNetTrunk, resnet50_trunk
-from .siamese import Siamese
+from .siamese import Siamese, SiameseVideo, pairwise_verification
 from .trl import MemoryBlock, TRLBlock
 
 _factory = {
     "resnet50_grl": GRLModel,
     "siamese": Siamese,
+    "siamese_video": SiameseVideo,
 }
 
 
@@ -40,6 +41,8 @@ __all__ = [
     "TRLBlock",
     "MemoryBlock",
     "Siamese",
+    "SiameseVideo",
+    "pairwise_verification",
     "ResNetTrunk",
     "Bottleneck",
     "resnet50_trunk",

@@ -1,16 +1,22 @@
-"""Siamese temporal attention pooling (counterpart of
-``grl_tpu/models/siamese.py:57-103``).
+"""Siamese temporal pooling + pairwise verification heads (counterpart of
+``grl_tpu/models/siamese.py``).
 
-QKV self-attention pooling over a clip's per-frame features: Q/K are
-C -> 512 linear + BN + row-unit-norm projections, softmax(Q Kᵀ) weights
-are applied to the raw C-dim frames, summed over time and unit-normalized.
-The unit norms are the epsilon-free ``x / ‖x‖`` of grl_tpu's ``l2_unit``,
-not ``F.normalize``.
+``Siamese``: QKV self-attention pooling over a clip's per-frame features:
+Q/K are C -> 512 linear + BN + row-unit-norm projections, softmax(Q Kᵀ)
+weights are applied to the raw C-dim frames, summed over time and
+unit-normalized. The unit norms are the epsilon-free ``x / ‖x‖`` of
+grl_tpu's ``l2_unit``, not ``F.normalize``. ``forward`` splits an
+interleaved (anchor, positive) batch into probe/gallery halves, pools each,
+and classifies every probe x gallery squared difference through BN + linear
+into 2-way verification scores.
 
-Every child of the JAX module is kept (``featV``, ``featV_bn``,
-``classifierBN``, ``classifierlinear``) so a grl_tpu tree loads strictly;
-the pairwise verification forward is training-path code and comes with
-the training slice.
+``SiameseVideo``: the same pairwise classifier for the clip-level (b, C)
+uncorrelated stream, with no pooling.
+
+Batch layout: pairs are adjacent (even index = probe, odd = gallery), as
+the pair sampler yields them. Every child of the JAX modules is kept
+(``featV``/``featV_bn`` are never applied) so a grl_tpu tree loads
+strictly.
 """
 
 from __future__ import annotations
@@ -22,6 +28,15 @@ from torch import nn
 def l2_unit(x, dim):
     """x / ‖x‖ with no epsilon."""
     return x / x.square().sum(dim=dim, keepdim=True).sqrt()
+
+
+def pairwise_verification(classifier_bn, classifier_linear, probe, gallery):
+    """All-pairs squared difference -> BN -> linear 2-way scores.
+
+    probe (Np, C), gallery (Ng, C) -> (Np, Ng, 2)."""
+    np_, ng = probe.shape[0], gallery.shape[0]
+    diff = (probe[:, None, :] - gallery[None, :, :]).square().reshape(np_ * ng, -1)
+    return classifier_linear(classifier_bn(diff)).view(np_, ng, -1)
 
 
 def _linear(cin, cout, rule):
@@ -55,3 +70,33 @@ class Siamese(nn.Module):
         weights = torch.softmax(q @ k.transpose(1, 2), dim=-1)
         pooled = (weights @ x).sum(dim=1)
         return l2_unit(pooled, dim=1)
+
+    def forward(self, x):
+        """x: (b, t, C) interleaved pairs -> (scores (b/2, b/2, 2), pooled (b, C)).
+
+        In train mode the running statistics update in grl_tpu's order:
+        probe pooling, gallery pooling (featQ_bn/featK_bn each twice), then
+        classifierBN once."""
+        b, t, c = x.shape
+        pairs = x.view(b // 2, 2, t, c)
+        pooled_probe = self.self_attention(pairs[:, 0])
+        pooled_gallery = self.self_attention(pairs[:, 1])
+        scores = pairwise_verification(self.classifierBN, self.classifierlinear,
+                                       pooled_probe, pooled_gallery)
+        return scores, torch.cat([pooled_probe, pooled_gallery])
+
+
+class SiameseVideo(nn.Module):
+    """Verification head for the (b, C) uncorrelated stream."""
+
+    def __init__(self, input_num=2048, output_num=2048, class_num=2):
+        super().__init__()
+        self.classifierBN = nn.BatchNorm1d(input_num)
+        self.classifierlinear = _linear(input_num, class_num, "classifier")
+
+    def forward(self, x):
+        """x: (b, C) interleaved pairs -> (scores (b/2, b/2, 2), (b, C) probes then galleries)."""
+        pairs = x.view(x.shape[0] // 2, 2, -1)
+        probe, gallery = pairs[:, 0], pairs[:, 1]
+        scores = pairwise_verification(self.classifierBN, self.classifierlinear, probe, gallery)
+        return scores, torch.cat([probe, gallery])

@@ -1,4 +1,5 @@
-"""Weight bridge: grl_tpu ``(params, state)`` trees -> a torch state_dict.
+"""Weight bridge: grl_tpu ``(params, state)`` trees -> a torch state_dict,
+and grl_tpu's whole train state -> the port's ``TrainState``.
 
 The port names its submodules after grl_tpu's param-tree keys
 (``backbone.base.layer1.0.conv1``, ``temporal_learning_block.fwd.atte.2``
@@ -10,7 +11,9 @@ again here because the port imports nothing of the JAX package:
 - 2-D linear kernels ``(in, out)`` -> ``(out, in)``;
 - norm ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 - state ``mean``/``var`` -> ``running_mean``/``running_var``;
-- ``num_batches_tracked`` (which grl_tpu does not keep) -> 0.
+- ``num_batches_tracked`` (which grl_tpu does not keep) -> 0;
+- optax's momentum trace (a tree shaped like the params) -> each
+  parameter's ``momentum_buffer`` in ``torch.optim.SGD``.
 """
 
 from __future__ import annotations
@@ -59,3 +62,30 @@ def state_dict_from_jax(params, state, module):
             raise ValueError(f"shape mismatch at {key}: {value.shape} vs {tuple(ref.shape)}")
         out[key] = torch.tensor(value, dtype=ref.dtype, device=ref.device)
     return out
+
+
+def _momentum_trace(opt_state):
+    """The trace tree of optax's ``chain(add_decayed_weights, trace)`` state."""
+    for entry in opt_state:
+        if hasattr(entry, "trace"):
+            return entry.trace
+    raise KeyError("no momentum trace in the optimizer state")
+
+
+def train_state_from_jax(tree, state):
+    """Load grl_tpu's ``train_state`` (nested numpy trees: ``params``,
+    ``model_state``, ``luts``, ``opt``, ``step``) into the port's
+    ``TrainState`` in place, so the port continues from that step; returns
+    ``state``."""
+    trace = _momentum_trace(tree["opt"])
+    for key, module in state.models.items():
+        module.load_state_dict(
+            state_dict_from_jax(tree["params"][key], tree["model_state"][key], module), strict=True)
+        for name, p in module.named_parameters():
+            *path, leaf = name.split(".")
+            buf = torch.tensor(_leaf(trace[key], None, path, leaf), dtype=p.dtype, device=p.device)
+            state.optimizer.state[p]["momentum_buffer"] = buf
+    state.luts = {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=state.luts[k].device)
+                  for k, v in tree["luts"].items()}
+    state.step = int(tree["step"])
+    return state

@@ -153,3 +153,68 @@ def test_rerank_on_card_matches_plain_min_sum(gen):
     want = re_ranking(*dists, min_sum_fn=minplus_plain)
     assert got.shape == (30, 120)
     torch.testing.assert_close(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_train_step_on_card_matches_cpu(gen, dtype):
+    """One tiny-width GRL training step (trunk layers (1, 1, 1, 1), width 4,
+    Siamese(128, 16), 2 pairs of 2-frame 64x32 clips) on the card against
+    the same step on the CPU. In fp64 the two compute the same function:
+    loss terms 1e-9 relative, each parameter's update within 1e-6 of its
+    largest element (plus lr x 1e-9: a bias in front of a BN has a zero
+    gradient in exact arithmetic), BN statistics and luts 1e-9 absolute. In
+    fp32 (well conditioned at this width): loss terms 1e-3 relative, all
+    updates together 1e-3 (L2, as a share of the CPU's), BN statistics and
+    luts 1e-5 absolute."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # fp32 convs, as on the CPU
+    try:
+        _train_step_card_vs_cpu(dtype)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _train_step_card_vs_cpu(dtype):
+    from grl_tpu_torch import models
+    from grl_tpu_torch.engine import init_train_state, make_train_step
+
+    lr = 1e-3
+    g = torch.Generator().manual_seed(0)
+    clips = torch.randn(4, 2, 64, 32, 3, generator=g, dtype=dtype)
+    luts = {k: torch.randn(3, 128, generator=g, dtype=dtype) for k in ("corr", "uncorr")}
+    luts = {k: v / v.norm(dim=1, keepdim=True) for k, v in luts.items()}
+    results = {}
+    for device in ("cuda", "cpu"):
+        cnn = models.GRLModel(trunk=models.ResNetTrunk(layers=(1, 1, 1, 1), width=4))
+        sia = models.Siamese(input_num=cnn.num_feat, output_num=16)
+        unc = models.SiameseVideo(input_num=cnn.num_feat)
+        for i, m in enumerate((cnn, sia, unc)):
+            models.init_weights(m, torch.Generator().manual_seed(i))
+            m.to(dtype)
+        state = init_train_state(cnn, sia, unc, 3, num_feat=cnn.num_feat, device=device)
+        state.luts = {k: v.to(device) for k, v in luts.items()}
+        before = {k: v.detach().cpu().clone() for k, v in state.models.state_dict().items()}
+        state, m = make_train_step(device=device)(state, clips.to(device), [0, 0, 1, 1], lr)
+        updates = {k: v.detach().cpu() - before[k] for k, v in state.models.state_dict().items()
+                   if not k.endswith("num_batches_tracked")}
+        results[device] = ({k: float(v) for k, v in m.items()}, updates,
+                           {k: v.cpu() for k, v in state.luts.items()})
+    (gm, gu, gl), (cm, cu, cl) = results["cuda"], results["cpu"]
+    exact = dtype == torch.float64
+    for k in gm:
+        if k.startswith("loss"):
+            assert abs(gm[k] - cm[k]) <= (1e-9 if exact else 1e-3) * abs(cm[k]), (k, gm[k], cm[k])
+    stats = [k for k in cu if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in cu if k not in stats]
+    if exact:
+        for k in params:
+            limit = 1e-6 * float(cu[k].abs().max()) + lr * 1e-9
+            assert float((gu[k] - cu[k]).abs().max()) <= limit, k
+    else:
+        flat = lambda u: torch.cat([u[k].flatten() for k in params])
+        assert float((flat(gu) - flat(cu)).norm()) <= 1e-3 * float(flat(cu).norm())
+    tol = 1e-9 if exact else 1e-5
+    for k in stats:
+        assert float((gu[k] - cu[k]).abs().max()) <= tol, k
+    for k in gl:
+        torch.testing.assert_close(gl[k], cl[k], rtol=0, atol=tol)

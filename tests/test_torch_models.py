@@ -159,6 +159,6 @@ def test_fresh_init_follows_grl_tpu_distributions():
 
 
 def test_create_names_and_rejects_unknown():
-    assert tm.names() == ["resnet50_grl", "siamese"]
+    assert tm.names() == ["resnet50_grl", "siamese", "siamese_video"]
     with pytest.raises(KeyError):
         tm.create("nope", device="cpu")
