@@ -37,7 +37,27 @@ descriptor), with seeded random weights. Phases:
    modules over the catalog's test split, as ``grl_tpu/cli/train.py`` does
    at its eval epochs; the launch counts are read after it (the min-plus
    kernel runs in the re-ranking) and the re-ranked distance matrix is
-   checked against the same re-ranking with the plain min-sum.
+   checked against the same re-ranking with the plain min-sum;
+10. ``cli_train``: ``grl_tpu_torch.cli.train.main`` in this process, at
+    full width over the synthetic catalog (32 train ids, 64x32 frames),
+    batch 16, 2 epochs, ``--rerank 1``: launch counts zeroed before and
+    read after (the final epoch's evaluation re-ranks on the min-plus
+    kernel); the trainer's warm step, the checkpoint's bytes, the main
+    thread's wait in ``AsyncCheckpointer.save`` and the writer's seconds;
+    then a copy of the final state steps back to back at the run's batch
+    (CUDA-event ms per step, kernel time under ``torch.profiler``);
+11. ``cli_resume``: ``checkpoint.npz`` loaded into a fresh ``TrainState``
+    on the card and on the CPU, each leaf bit-equal to the state
+    ``cli_train`` ended with; then ``--resume ... --epochs 3`` trains
+    exactly one epoch;
+12. ``cli_evaluate``: ``grl_tpu_torch.cli.evaluate.main`` on the best
+    checkpoint with ``--rerank 1 --save-distmat``: the kernel launched, the
+    saved distance matrix finite and equal to the evaluator's, which is
+    checked against the same re-ranking with the plain min-sum;
+13. ``cli_mars``: a small dataset in MARS's on-disk layout (256x128 JPEGs
+    written with PIL), ``cli.train -d mars`` for one epoch and
+    ``cli.evaluate -d mars --rerank 1``, decoding through
+    ``data/jpeg.py`` (the native routine where it builds, PIL otherwise).
 
 TF32 is off throughout (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the comparisons hold fp32 on
@@ -51,18 +71,25 @@ before any phase.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import importlib.util
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from grl_tpu_torch import models, ops
+from grl_tpu_torch.cli import evaluate as cli_evaluate
+from grl_tpu_torch.cli import train as cli_train
 from grl_tpu_torch.data import ClipDataset, ClipLoader, RandomPairSampler, SyntheticVideoReID, normalize
+from grl_tpu_torch.data import jpeg
 from grl_tpu_torch.data.sampling import dense_indices
 from grl_tpu_torch.engine import (Evaluator, Trainer, grl_loss_fn, init_train_state,
                                   make_descriptor_fn, make_train_step, metrics, step_decay_lr)
@@ -71,6 +98,7 @@ from grl_tpu_torch.engine.rerank import re_ranking
 from grl_tpu_torch.ops.build import BUILD_INFO
 from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
+from grl_tpu_torch.utils import AsyncCheckpointer, load_train_state, serialization
 
 # the MARS test split: 1980 queries, 11310 = 1980 + 9330 query ∪ gallery
 MARS_Q, MARS_EXTRA_G = 1980, 9330
@@ -95,6 +123,11 @@ TRAIN_TOL_FP64 = {"loss": 1e-9, "leaf": 1e-5, "bn": 1e-9, "lut": 1e-9}
 TRAIN_TOL_FP32 = {"loss": 1e-3, "all_l2": 0.1, "bn": 5e-3, "lut": 5e-4}
 TRAIN_LR = step_decay_lr(1e-3, 0)  # the reference's base lr, epoch 0
 FRAME = (256, 128)  # the reference's clip frames (config.py)
+# the CLI phases' working directories (``.gitignore`` lists build/)
+BUILD = Path(__file__).resolve().parent / "build"
+CLI_DIR = BUILD / "chip_cli"
+CLI_TRAIN = ["-d", "synthetic", "--synthetic-ids", "32", "-b", "16", "--rerank", "1",
+             "--logs-dir", str(CLI_DIR)]
 # parameters no loss term reaches: they move by weight decay alone
 UNREACHED = ("siamese.featV.", "siamese.featV_bn.", "siamese_uncorr.classifierlinear.",
              "siamese_uncorr.classifierBN.")
@@ -570,6 +603,287 @@ def phase_train_eval(state, ds):
     return launches
 
 
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def zero_launches():
+    for fn in ops.KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in ops.KERNELS.items()}
+
+
+def run_cli(module, argv, device):
+    """``module.main`` on ``argv`` in this process; ``sys.stdout`` is
+    restored after it (the CLI's tee logger replaces it)."""
+    args = module.build_parser().parse_args([*argv, "--device", device])
+    stdout = sys.stdout
+    try:
+        return module.main(args)
+    finally:
+        sys.stdout = stdout
+
+
+@contextlib.contextmanager
+def recording():
+    """What a CLI run did, read from the classes it drives: each epoch's
+    trainer stats and the state it ended with, the main thread's seconds in
+    each ``AsyncCheckpointer.save``, each finished write (seconds, bytes),
+    and each ``Evaluator.evaluate`` result."""
+    rec = {"epochs": [], "saves": [], "writes": [], "evals": [], "state": None}
+    train, save, wait, evaluate = Trainer.train, AsyncCheckpointer.save, AsyncCheckpointer.wait, Evaluator.evaluate
+
+    def rec_train(self, epoch, *a, **k):
+        state, stats = train(self, epoch, *a, **k)
+        rec["epochs"].append({"epoch": epoch, **stats})
+        rec["state"] = state
+        return state, stats
+
+    def rec_save(self, *a, **k):
+        save(self, *a, **k)
+        rec["saves"].append(self.last_save_seconds)
+
+    def rec_wait(self):
+        pending = self._pending is not None
+        wait(self)
+        if pending:
+            rec["writes"].append({"seconds": self.last_write_seconds, "bytes": self.last_bytes})
+
+    def rec_evaluate(self, *a, **k):
+        res = evaluate(self, *a, **k)
+        rec["evals"].append(res)
+        return res
+
+    Trainer.train, AsyncCheckpointer.save, AsyncCheckpointer.wait, Evaluator.evaluate = (
+        rec_train, rec_save, rec_wait, rec_evaluate)
+    try:
+        yield rec
+    finally:
+        Trainer.train, AsyncCheckpointer.save, AsyncCheckpointer.wait, Evaluator.evaluate = (
+            train, save, wait, evaluate)
+
+
+def rerank_vs_plain(res):
+    """Max abs difference between ``res.distmat`` and the same re-ranking of
+    ``res``'s features with the plain min-sum."""
+    plain = re_ranking(cosine_distance(res.qf, res.gf), _euclidean(res.qf, res.qf),
+                       _euclidean(res.gf, res.gf), min_sum_fn=ops.minplus_plain)
+    return float((plain - res.distmat).abs().max())
+
+
+def step_probe(state, device, batch=16, frame=(64, 32)):
+    """A copy of ``state`` steps at the CLI run's batch and frames: CUDA-event
+    ms per step over 5 steps queued back to back (after one warm-up), and
+    the kernel time of 2 more under ``torch.profiler``; the card is idle for
+    the rest of a step."""
+    probe = copy.deepcopy(state)
+    step = make_train_step(device=device)
+    clips = normalize(torch.randint(0, 256, (batch, 8, *frame, 3), dtype=torch.uint8, device=device))
+    targets = np.repeat(np.arange(batch // 2), 2)
+    step(probe, clips, targets, TRAIN_LR)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        step(probe, clips, targets, TRAIN_LR)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 5
+    prof = device_profile(lambda: [step(probe, clips, targets, TRAIN_LR) for _ in range(2)], top=6)
+    device_ms = prof["kernel_ms_total"] / 2
+    return {"step_ms": step_ms, "kernel_ms_per_step": device_ms, "idle_share": 1 - device_ms / step_ms,
+            "top": prof["top"]}
+
+
+def phase_cli_train(device="cuda", extra=()):
+    """``cli.train`` at full width over the synthetic catalog, 2 epochs with
+    the re-ranked evaluation at the last; returns the state it ended with
+    and the launch counts of the run."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    zero_launches()
+    sync(device)
+    with recording() as rec:
+        t0 = time.perf_counter()
+        top1 = run_cli(cli_train, [*CLI_TRAIN, "--epochs", "2", *extra], device)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    epochs = rec["epochs"]
+    ckpt = CLI_DIR / "checkpoint.npz"
+    tags = {json.loads(line)["tag"] for line in open(CLI_DIR / "train_log" / "scalars.jsonl")}
+    probe = step_probe(rec["state"], device) if torch.device(device).type == "cuda" else None
+    log("cli_train", seconds=seconds, top1=top1, launches=launches, steps_per_epoch=rec["state"].step // 2,
+        step_probe=probe,
+        warm_step_ms=epochs[-1]["batch_time"] * 1e3, epoch_stats=epochs,
+        checkpoint_bytes=ckpt.stat().st_size, save_wait_s=rec["saves"], writes=rec["writes"],
+        best_written=(CLI_DIR / "checkpoint_best.npz").exists(), scalar_tags=sorted(tags))
+    if torch.device(device).type == "cuda":
+        check(launches["minplus"] > 0, "cli.train's re-ranked evaluation did not launch the min-plus kernel")
+    check([e["epoch"] for e in epochs] == [0, 1], f"cli.train ran epochs {[e['epoch'] for e in epochs]}")
+    check(all(np.isfinite(e["loss"]) for e in epochs), "cli.train losses not finite")
+    check(int(np.load(ckpt)["extra_epoch"]) == 2, "checkpoint.npz does not say epoch 2")
+    check(len(rec["writes"]) == 2, f"{len(rec['writes'])} checkpoint writes, expected 2")
+    check(tags == {"train/total_loss_step", "train/total_loss_avg"}, f"scalar tags {tags}")
+    return rec["state"], launches
+
+
+def phase_cli_resume(final, device="cuda", extra=()):
+    """``checkpoint.npz`` into fresh train states on the card and the CPU,
+    bit-equal to the state ``cli.train`` ended with; then one more epoch
+    through ``--resume``."""
+    ckpt = CLI_DIR / "checkpoint.npz"
+    want = serialization.snapshot(final).leaves()
+    paths = serialization.leaf_paths(final)
+    args = cli_train.build_parser().parse_args([*CLI_TRAIN, *extra])
+    result = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        t0 = time.perf_counter()
+        cnn, sia, unc = cli_train.build_models(args, tiny=args.tiny)
+        state = init_train_state(cnn, sia, unc, final.luts["corr"].shape[0], num_feat=cnn.num_feat,
+                                 device=dev)
+        extras = load_train_state(state, str(ckpt))
+        got = serialization.snapshot(state).leaves()
+        differ = [p for p, a, b in zip(paths, got, want) if a.dtype != b.dtype or a.tobytes() != b.tobytes()]
+        result[dev] = {"leaves": len(got), "differ": differ[:5], "seconds": time.perf_counter() - t0,
+                       "epoch": int(extras["epoch"])}
+        check(not differ and len(got) == len(want), f"resumed state on {dev} differs at {differ[:5]}")
+        check(state.step == final.step, f"resumed step {state.step} vs {final.step}")
+        del state, cnn, sia, unc
+    zero_launches()
+    with recording() as rec:
+        t0 = time.perf_counter()
+        run_cli(cli_train, [*CLI_TRAIN, "--epochs", "3", "--resume", str(ckpt), *extra], device)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    epochs = [e["epoch"] for e in rec["epochs"]]
+    extra_epoch = int(np.load(ckpt)["extra_epoch"])
+    log("cli_resume", bit_equal=result, resumed_epochs=epochs, extra_epoch=extra_epoch, seconds=seconds,
+        launches=read_launches(), epoch_stats=rec["epochs"], writes=rec["writes"])
+    check(epochs == [2], f"--resume trained epochs {epochs}, expected [2]")
+    check(extra_epoch == 3, f"checkpoint after --resume says epoch {extra_epoch}")
+
+
+def phase_cli_evaluate(device="cuda", extra=()):
+    """``cli.evaluate`` on the best checkpoint (the last one when no
+    evaluation beat rank-1 0) with re-ranking and ``--save-distmat``."""
+    best = CLI_DIR / "checkpoint_best.npz"
+    ckpt = best if best.exists() else CLI_DIR / "checkpoint.npz"
+    dist = CLI_DIR / "distmat.npz"
+    argv = ["-d", "synthetic", "--synthetic-ids", "32", "--seed", "0", "--rerank", "1",
+            "--logs-dir", str(CLI_DIR), "--checkpoint", str(ckpt), "--save-distmat", str(dist), *extra]
+    zero_launches()
+    sync(device)
+    with recording() as rec:
+        t0 = time.perf_counter()
+        top1 = run_cli(cli_evaluate, argv, device)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    res = rec["evals"][-1]
+    saved = np.load(dist)
+    err = rerank_vs_plain(res)
+    log("cli_evaluate", seconds=seconds, checkpoint=ckpt.name, top1=top1, mAP=res.mAP, launches=launches,
+        distmat_shape=list(saved["distmat"].shape), rerank_vs_plain_max_abs_diff=err)
+    if torch.device(device).type == "cuda":
+        check(launches["minplus"] > 0, "cli.evaluate --rerank 1 did not launch the min-plus kernel")
+    check(bool(np.isfinite(saved["distmat"]).all()), "saved distmat not finite")
+    check(np.array_equal(saved["distmat"], res.distmat.cpu().numpy()), "saved distmat is not the evaluator's")
+    check(saved["distmat"].shape == (len(saved["q_pids"]), len(saved["g_pids"])) and bool(saved["rerank"]),
+          "saved distmat's shape or flag")
+    check(err <= KERNEL_TOL, f"cli.evaluate re-ranking, kernel vs plain min-sum: {err}")
+    return launches
+
+
+def write_fake_mars(root, train_ids=16, test_ids=8, frames_range=(8, 16), height=256, width=128, seed=0):
+    """A small dataset in MARS's on-disk layout: ``bbox_{train,test}/<pid>/
+    <pid>C<cam>T0001F<f>.jpg`` (one tracklet per id and camera, frames from
+    the synthetic catalog's templates, written with PIL), ``info/*_name.txt``,
+    ``tracks_*_info.mat`` and ``query_IDX.mat`` (camera 1 of every test id)."""
+    from PIL import Image
+    from scipy.io import savemat
+
+    from grl_tpu_torch.data.catalogs.synthetic import _template
+
+    rng = np.random.RandomState(seed)
+    (root / "info").mkdir(parents=True)
+
+    def split(dirname, pids):
+        names, rows = [], []
+        for pid in pids:
+            template = _template(rng, height, width)
+            (root / dirname / f"{pid:04d}").mkdir(parents=True)
+            for cam in (1, 2):
+                n = rng.randint(*frames_range)
+                rows.append([len(names) + 1, len(names) + n, pid, cam])
+                for f in range(1, n + 1):
+                    img = (template * (0.9 + 0.2 * (cam - 1)) + 0.08 * rng.randn(height, width, 3)) * 255
+                    name = f"{pid:04d}C{cam}T0001F{f:03d}.jpg"
+                    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(root / dirname / f"{pid:04d}" / name)
+                    names.append(name)
+        (root / "info" / f"{dirname[5:]}_name.txt").write_text("\n".join(names) + "\n")
+        return np.array(rows, np.int64)
+
+    train_rows = split("bbox_train", range(1, train_ids + 1))
+    test_rows = split("bbox_test", range(train_ids + 1, train_ids + test_ids + 1))
+    savemat(root / "info" / "tracks_train_info.mat", {"track_train_info": train_rows})
+    savemat(root / "info" / "tracks_test_info.mat", {"track_test_info": test_rows})
+    query = [i + 1 for i, row in enumerate(test_rows) if row[3] == 1]
+    savemat(root / "info" / "query_IDX.mat", {"query_IDX": np.array([query])})
+    return int(train_rows[-1][1] + test_rows[-1][1])
+
+
+def phase_cli_mars(device="cuda", extra=(), frame=FRAME):
+    """``cli.train -d mars`` for one epoch and ``cli.evaluate -d mars
+    --rerank 1`` over a MARS layout written here, through the JPEG decode."""
+    root, logs = BUILD / "chip_mars", BUILD / "chip_mars_run"
+    for d in (root, logs):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    frames = write_fake_mars(root, height=frame[0], width=frame[1])
+    write_s = time.perf_counter() - t0
+    common = ["-d", "mars", "--data-dir", str(root), "--logs-dir", str(logs), *extra]
+    with recording() as rec:
+        t0 = time.perf_counter()
+        top1_train = run_cli(cli_train, [*common, "-b", "16", "--epochs", "1"], device)
+        sync(device)
+        train_s = time.perf_counter() - t0
+        zero_launches()
+        t0 = time.perf_counter()
+        top1 = run_cli(cli_evaluate, [*common, "--rerank", "1", "--seed", "0",
+                                      "--checkpoint", str(logs / "checkpoint.npz")], device)
+        sync(device)
+        eval_s = time.perf_counter() - t0
+    launches = read_launches()
+    res = rec["evals"][-1]
+    err = rerank_vs_plain(res)
+    log("cli_mars", jpeg_frames=frames, frame=list(frame), write_seconds=write_s, train_seconds=train_s,
+        evaluate_seconds=eval_s, train_steps=rec["state"].step, top1_train_eval=top1_train, top1=top1,
+        query=int(res.qf.shape[0]), gallery=int(res.gf.shape[0]), launches=launches,
+        native_jpeg=dict(jpeg.NATIVE_INFO), rerank_vs_plain_max_abs_diff=err)
+    check(rec["state"].step >= 1 and np.isfinite(rec["epochs"][-1]["loss"]), "cli.train -d mars did not train")
+    if torch.device(device).type == "cuda":
+        check(launches["minplus"] > 0, "cli.evaluate -d mars --rerank 1 did not launch the min-plus kernel")
+    check(bool(torch.isfinite(res.distmat).all()), "MARS distmat not finite")
+    check(err <= KERNEL_TOL, f"cli.evaluate -d mars re-ranking, kernel vs plain min-sum: {err}")
+    return launches
+
+
+def host_inventory():
+    """What the machine offers the data plane and the scalar writer."""
+    def version(name):
+        if importlib.util.find_spec(name) is None:
+            return None
+        return getattr(__import__(name), "__version__", "present")
+
+    return {"PIL": version("PIL"), "scipy": version("scipy"), "tensorboardX": version("tensorboardX"),
+            "g++": shutil.which("g++"), "native_jpeg": jpeg.native_available(),
+            "native_jpeg_error": jpeg.NATIVE_INFO["error"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only on a card",
@@ -581,6 +895,7 @@ def main():
     smi = nvidia_smi()
     log("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
+    log("host", **host_inventory())
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -601,11 +916,20 @@ def main():
     train_launches = phase_train_eval(state, ds)
     del state
     torch.cuda.empty_cache()
+    final, cli_train_launches = phase_cli_train()
+    phase_cli_resume(final)
+    del final
+    torch.cuda.empty_cache()
+    cli_eval_launches = phase_cli_evaluate()
+    mars_launches = phase_cli_mars()
 
-    # launches on this slice's path (train + its closing evaluation); the
-    # dense-evaluation slice's count beside it
-    entry["launches"] = train_launches["minplus"]
-    entry["launches_by_path"] = {"evaluate": launches["minplus"], "train": train_launches["minplus"]}
+    # launches on this slice's path (cli.train with its re-ranked
+    # evaluation); every other path's count beside it
+    entry["launches"] = cli_train_launches["minplus"]
+    entry["launches_by_path"] = {"evaluate": launches["minplus"], "train": train_launches["minplus"],
+                                 "cli_train": cli_train_launches["minplus"],
+                                 "cli_evaluate": cli_eval_launches["minplus"],
+                                 "cli_mars_evaluate": mars_launches["minplus"]}
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [entry]}))

@@ -1,0 +1,99 @@
+"""Standalone evaluation entry point (counterpart of ``grl_tpu/cli/evaluate.py``).
+
+``python -m grl_tpu_torch.cli.evaluate -d mars --data-dir ... --logs-dir ...``
+
+Loads a checkpoint (``--checkpoint``, default ``<logs-dir>/checkpoint_best.npz``;
+one this package or grl_tpu wrote), dense-samples every tracklet, reports
+CMC/mAP, optionally after k-reciprocal re-ranking (``--rerank 1``, on the
+min-plus kernel on the card), and with ``--save-distmat`` writes the final
+distance matrix and ids in grl_tpu's npz keys. ``--visual`` and
+``--visual-from`` render ranked strips, which waits for ROADMAP queue A,
+item 8; until then they exit with that message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os.path as osp
+
+from .. import resolve_device
+from ..config import PRESETS, ExperimentConfig
+from ..data import get_data
+from ..engine import Evaluator, init_train_state
+from ..utils import load_train_state
+from .train import DATASETS, _synthetic_kwargs, build_models, open_log, validate_args
+
+
+def main(args):
+    validate_args(args)
+    device = resolve_device(args.device)
+    open_log(args.logs_dir, "test")
+    print(f"==========\nArgs:{args}\n==========")
+    print(f"device: {device}")
+
+    _, num_classes, _, query_loader, gallery_loader = get_data(
+        args.dataset, args.data_dir, args.batch_size, args.seq_len, args.seq_srd, args.workers,
+        only_eval=True, split_id=args.split,
+        dataset_kwargs=_synthetic_kwargs(args),
+    )
+    cnn, siamese, siamese_uncorr = build_models(args, tiny=args.tiny)
+    state = init_train_state(cnn, siamese, siamese_uncorr, num_classes, num_feat=cnn.num_feat,
+                             device=device)
+    ckpt = args.checkpoint or osp.join(args.logs_dir, "checkpoint_best.npz")
+    load_train_state(state, ckpt)
+    print(f"loaded {ckpt}")
+
+    cfg = ExperimentConfig.from_args(args)
+    evaluator = Evaluator(cnn, siamese, micro_batch=cfg.eval.micro_batch, rerank=bool(args.rerank),
+                          rerank_k1=cfg.eval.rerank_k1, rerank_k2=cfg.eval.rerank_k2,
+                          rerank_lambda=cfg.eval.rerank_lambda, save_distmat=args.save_distmat or None,
+                          device=device)
+    top1 = float(evaluator.evaluate(query_loader, gallery_loader).cmc[0])
+    print("rank-1 accuracy is", top1)
+    return top1
+
+
+def build_parser():
+    # defaults from the typed test_all preset (config.py)
+    cfg = PRESETS["test_all"]()
+    parser = argparse.ArgumentParser(description="GRL evaluation (PyTorch/CUDA)")
+    parser.add_argument("-d", "--dataset", type=str, default=cfg.data.dataset, choices=DATASETS)
+    parser.add_argument("-b", "--batch-size", type=int, default=cfg.data.batch_size)
+    parser.add_argument("-j", "--workers", type=int, default=cfg.data.workers)
+    parser.add_argument("--seq_len", type=int, default=cfg.data.seq_len)
+    parser.add_argument("--seq_srd", type=int, default=cfg.data.seq_srd)
+    parser.add_argument("--split", type=int, default=cfg.data.split)
+    parser.add_argument("--arch1", type=str, default=cfg.model.arch1)
+    parser.add_argument("--arch2", type=str, default=cfg.model.arch2)
+    parser.add_argument("--features", type=int, default=cfg.model.features)
+    parser.add_argument("--dropout", type=float, default=cfg.model.dropout)
+    parser.add_argument("--seed", type=int, default=cfg.seed)
+    parser.add_argument("--rerank", type=int, default=0)
+    parser.add_argument("--visual", type=int, default=0, help="not ported yet (ROADMAP queue A, item 8)")
+    parser.add_argument("--save-distmat", type=str, default="", dest="save_distmat", metavar="NPZ",
+                        help="write the final (post-rerank) distance matrix + pids/camids")
+    parser.add_argument("--visual-from", type=str, default="", dest="visual_from", metavar="NPZ",
+                        help="not ported yet (ROADMAP queue A, item 8)")
+    parser.add_argument("--data-dir", type=str, metavar="PATH", default="")
+    parser.add_argument("--logs-dir", type=str, metavar="PATH", default="log/grl")
+    parser.add_argument("--checkpoint", type=str, default="")
+    parser.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP queue A, item 6)")
+    parser.add_argument("--tiny", action="store_true")
+    parser.add_argument("--use-flow", action="store_true", help="not ported yet (ROADMAP queue A, item 8)")
+    parser.add_argument("--devices", type=int, default=0,
+                        help="cards to evaluate on; above 1 is not ported yet (ROADMAP queue A, item 7)")
+    parser.add_argument("--synthetic-ids", type=int, default=0,
+                        help="-d synthetic: number of generated train identities, as the "
+                             "checkpoint's training run had them (0 = library default)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (default cuda; cpu runs on the host)")
+    return parser
+
+
+def cli():
+    """Console-script entry point; swallows ``main``'s return value."""
+    main(build_parser().parse_args())
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,7 +1,7 @@
 from .catalogs import SyntheticVideoReID
-from .loader import ClipDataset, ClipLoader
+from .loader import ClipDataset, ClipLoader, get_data
 from .sampling import RandomPairSampler
 from .transforms import augment, normalize
 
 __all__ = ["ClipDataset", "ClipLoader", "RandomPairSampler", "SyntheticVideoReID", "augment",
-           "normalize"]
+           "get_data", "normalize"]

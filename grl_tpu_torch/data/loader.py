@@ -1,12 +1,13 @@
-"""Host-side clip pipeline for in-memory uint8 sources, with prefetch.
+"""Host-side clip pipeline: decode -> resize -> batch, with prefetch
+(counterpart of ``grl_tpu/data/loader.py``).
 
-A copy of ``grl_tpu/data/loader.py``'s ``ClipDataset``/``ClipLoader`` for
-tracklets whose frames are uint8 arrays (the synthetic catalog and
-pre-decoded frames): a thread-pool stage gathers frames and a prefetch
-thread hands uint8 batches to the caller, which uploads, augments and
-normalizes them on the device. Training batches come from a sampler
-(``RandomPairSampler``) with ``drop_last``. JPEG path sources, the real
-catalogs and ``get_data`` come with the data-plane slice.
+Tracklet frames are either in-memory uint8 arrays (the synthetic catalog,
+pre-decoded frames) or tuples of image paths (the real catalogs), decoded
+by ``data/jpeg.py``. A thread-pool stage decodes and gathers frames and a
+prefetch thread hands uint8 batches to the caller, which uploads,
+augments and normalizes them on the device. Training batches come from a
+sampler (``RandomPairSampler``) with ``drop_last``. ``get_data`` builds a
+catalog's loaders as grl_tpu's does, on one process.
 """
 
 from __future__ import annotations
@@ -17,21 +18,25 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .sampling import dense_indices, random_window_indices, rrs_test_indices, rrs_train_indices
+from .sampling import (RandomPairSampler, dense_indices, random_window_indices, rrs_test_indices,
+                       rrs_train_indices)
 
 
 def _frame(source, index, height, width):
     if not isinstance(source, np.ndarray):
-        raise TypeError(
-            "grl_tpu_torch's loader takes in-memory uint8 frame arrays; JPEG "
-            "path sources are not ported yet"
-        )
+        from .jpeg import decode_resize
+
+        return decode_resize(source[index], height, width)
     frame = source[index]
     if frame.shape[0] != height or frame.shape[1] != width:
         from PIL import Image
 
         frame = np.asarray(Image.fromarray(frame).resize((width, height), Image.BILINEAR))
     return frame
+
+
+def _num_frames(source):
+    return source.shape[0] if isinstance(source, np.ndarray) else len(source)
 
 
 class ClipDataset:
@@ -66,7 +71,7 @@ class ClipDataset:
 
     def get(self, index, epoch=0):
         source, pid, camid = self.tracklets[index]
-        n = source.shape[0]
+        n = _num_frames(source)
         if self.sample == "rrs_train":
             idx = rrs_train_indices(n, self.seq_len, self._item_rng(index, epoch))
         elif self.sample == "rrs_test":
@@ -179,3 +184,56 @@ class ClipLoader:
                 except queue.Empty:
                     pass
             thread.join()
+
+
+def get_data(name, root=None, batch_size=16, seq_len=8, seq_srd=4, workers=4, only_eval=False,
+             split_id=0, height=256, width=128, eval_batch=30, seed=0, dataset_kwargs=None,
+             train_sample="rrs_train", process_shard=False, use_flow=False, eval_stripe=False):
+    """Build ``(dataset, num_classes, train_loader, query_loader,
+    gallery_loader)`` as ``grl_tpu/data/loader.py::get_data`` does, for
+    mars, duke, ilidsvidsequence, prid2011sequence and synthetic.
+
+    The train loader pairs anchors and positives (``RandomPairSampler``,
+    ``drop_last``); evaluation samples dense clips one tracklet at a time
+    when ``only_eval``, else one rrs_test clip per tracklet. Multi-host
+    sharding (``process_shard``, ``eval_stripe``) and optical-flow clips
+    (``use_flow``) are not ported and raise."""
+    if process_shard or eval_stripe:
+        raise NotImplementedError(
+            "multi-host catalog sharding is not ported yet (ROADMAP queue A, item 7)")
+    if use_flow:
+        raise NotImplementedError(
+            "optical-flow clips (--use-flow) are not ported yet (ROADMAP queue A, item 8)")
+    from .catalogs import get_sequence
+
+    kwargs = dict(dataset_kwargs or {})
+    if name in ("ilidsvidsequence", "prid2011sequence"):
+        dataset = get_sequence(name, root, split_id=split_id, seq_len=seq_len, seq_srd=seq_srd, **kwargs)
+        train_list = dataset.trainval
+        num_classes = dataset.num_trainval_ids
+    elif name == "synthetic":
+        dataset = get_sequence(name, **kwargs)
+        train_list = dataset.train
+        num_classes = dataset.num_train_pids
+        height, width = dataset.height, dataset.width
+    else:
+        dataset = get_sequence(name, root, **kwargs)
+        train_list = dataset.train
+        num_classes = dataset.num_train_pids
+
+    train_loader = None
+    if not only_eval:
+        if batch_size % 2 != 0:
+            raise ValueError("train batch_size must be even (anchor/positive pairs)")
+        train_loader = ClipLoader(
+            ClipDataset(train_list, seq_len, train_sample, height, width, seed=seed),
+            batch_size=batch_size, sampler=RandomPairSampler(train_list, seed=seed), drop_last=True,
+            workers=workers)
+
+    eval_sample = "dense" if only_eval else "rrs_test"
+    eval_bs = 1 if only_eval else eval_batch
+    query_loader, gallery_loader = (
+        ClipLoader(ClipDataset(items, seq_len, eval_sample, height, width), batch_size=eval_bs,
+                   workers=workers)
+        for items in (dataset.query, dataset.gallery))
+    return dataset, num_classes, train_loader, query_loader, gallery_loader

@@ -9,7 +9,8 @@
 - rrs_test path: one clip per tracklet, rows written in order;
 - gallery := query ∪ gallery, cosine distance ``-qf @ gfᵀ``, optional
   k-reciprocal re-ranking on the device (with the min-plus kernel), and the
-  MARS protocol on the device.
+  MARS protocol on the device; ``save_distmat`` writes the final distance
+  matrix and ids to an npz with grl_tpu's keys.
 
 Features and distance matrices stay on the device; only the CMC curve and
 mAP come back to the host.
@@ -75,7 +76,9 @@ class EvalResult(NamedTuple):
 
 class Evaluator:
     def __init__(self, cnn, siamese, micro_batch=64, rerank=False, rerank_k1=20, rerank_k2=6,
-                 rerank_lambda=0.3, device=None):
+                 rerank_lambda=0.3, save_distmat=None, device=None):
+        """``save_distmat``: an .npz path that each ``evaluate`` writes the
+        final distance matrix to, with the ids (grl_tpu's keys)."""
         self.device = resolve_device(device)
         self.cnn = cnn.to(self.device).eval()
         self.siamese = siamese.to(self.device).eval()
@@ -84,6 +87,7 @@ class Evaluator:
         self.rerank_k1 = rerank_k1
         self.rerank_k2 = rerank_k2
         self.rerank_lambda = rerank_lambda
+        self.save_distmat = save_distmat
         self._describe = make_descriptor_fn(self.cnn, self.siamese)
 
     def _to_device(self, clips_np):
@@ -94,6 +98,10 @@ class Evaluator:
         """Loader -> (features (N, 3C) device tensor, pids, camids); dense
         tracklets are clip-averaged."""
         pids, camids = [], []
+        # eval mode on every call: a training step between two evaluations
+        # leaves the shared modules in train mode
+        self.cnn.eval()
+        self.siamese.eval()
         if loader.dataset.sample == "dense":
             feats = self._extract_dense(loader, len(loader.dataset), pids, camids)
         else:
@@ -169,6 +177,11 @@ class Evaluator:
                 distmat, _euclidean(qf, qf), _euclidean(gf, gf),
                 k1=self.rerank_k1, k2=self.rerank_k2, lambda_value=self.rerank_lambda,
             )
+
+        if self.save_distmat:
+            np.savez(self.save_distmat, distmat=distmat.cpu().numpy(), q_pids=q_pids,
+                     q_camids=q_camids, g_pids=g_pids, g_camids=g_camids, rerank=np.bool_(self.rerank))
+            print(f"saved distance matrix to {self.save_distmat}")
 
         cmc_curve, mAP = metrics.evaluate_device(distmat, q_pids, g_pids, q_camids, g_camids)
         print_protocol(cmc_curve, mAP, cmc_topk)

@@ -4,10 +4,11 @@
 Per step: upload the uint8 batch, augment it on the device with the
 trainer's generator, run the train step. Metrics are read one step late,
 so the host never waits on step i before step i+1 is queued. Meters,
-prints (every ``print_freq`` steps) and the returned dict follow grl_tpu.
-The scalar writer comes with the CLI slice, data parallelism and the
-multi-host collective stop with the parallel slice; a ``stop_event`` ends
-the epoch at the next step boundary.
+prints (every ``print_freq`` steps), the scalar writer's tags and step
+numbers, and the returned dict follow grl_tpu; the writer is flushed at
+the end of each epoch. A ``stop_event`` ends the epoch at the next step
+boundary. Data parallelism and the multi-host collective stop come with
+the parallel slice.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ from .train_step import to_device
 
 
 class Trainer:
-    def __init__(self, train_step, print_freq=100, seed=0, stop_event=None, device=None):
+    def __init__(self, train_step, scalar_writer=None, print_freq=100, seed=0, stop_event=None,
+                 device=None):
         self.train_step = train_step
+        self.writer = scalar_writer
         self.print_freq = print_freq
         self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -48,6 +51,10 @@ class Trainer:
             prec_uncorr.update(float(m["prec_uncorr"]), n)
             prec_vid.update(float(m["prec_vid"]), n)
             prec_frame.update(float(m["prec_frame"]), n)
+            if self.writer is not None:
+                step = num_steps * epoch + i
+                self.writer.add_scalar("train/total_loss_step", losses.val, step)
+                self.writer.add_scalar("train/total_loss_avg", losses.avg, step)
             if (i + 1) % self.print_freq == 0:
                 print(
                     "Epoch: [{}][{}/{}]\t"
@@ -81,6 +88,8 @@ class Trainer:
             end = time.time()
         if pending is not None:
             materialize(pending)
+        if self.writer is not None:
+            self.writer.flush()
         return train_state, {
             "loss": losses.avg,
             "prec_uncorr": prec_uncorr.avg,

@@ -1,5 +1,6 @@
 """Weight bridge: grl_tpu ``(params, state)`` trees -> a torch state_dict,
-and grl_tpu's whole train state -> the port's ``TrainState``.
+grl_tpu's whole train state -> the port's ``TrainState``, and torchvision
+ImageNet ResNet-50 weights -> the port's trunk.
 
 The port names its submodules after grl_tpu's param-tree keys
 (``backbone.base.layer1.0.conv1``, ``temporal_learning_block.fwd.atte.2``
@@ -89,3 +90,28 @@ def train_state_from_jax(tree, state):
                   for k, v in tree["luts"].items()}
     state.step = int(tree["step"])
     return state
+
+
+@torch.no_grad()
+def load_imagenet_resnet50(trunk, flat):
+    """Load torchvision ImageNet ``resnet50`` weights into ``trunk`` (a
+    ``ResNetTrunk``) in place; the counterpart of
+    ``grl_tpu/utils/convert_torch.py::load_imagenet_resnet50``.
+
+    ``flat`` maps torchvision's state_dict names to numpy arrays (the npz
+    that ``python -m grl_tpu.utils.convert_torch`` writes). The trunk uses
+    torchvision's names and layouts, so each entry loads as it is: ``fc.*``
+    is dropped, ``num_batches_tracked`` too (grl_tpu keeps no such
+    counter), and a name the trunk lacks or a shape that differs raises.
+    Returns ``trunk``."""
+    own = trunk.state_dict()
+    for key, value in flat.items():
+        if key.startswith("fc.") or key.endswith("num_batches_tracked"):
+            continue
+        if key not in own:
+            raise KeyError(f"{key!r} is not in the trunk")
+        value = np.asarray(value)
+        if value.shape != tuple(own[key].shape):
+            raise ValueError(f"shape mismatch at {key}: {value.shape} vs {tuple(own[key].shape)}")
+        own[key].copy_(torch.from_numpy(value))
+    return trunk

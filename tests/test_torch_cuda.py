@@ -218,3 +218,74 @@ def _train_step_card_vs_cpu(dtype):
         assert float((gu[k] - cu[k]).abs().max()) <= tol, k
     for k in gl:
         torch.testing.assert_close(gl[k], cl[k], rtol=0, atol=tol)
+
+
+def _tiny_train_state(device):
+    """The CLIs' ``--tiny`` models and train state (5 classes) on ``device``."""
+    import argparse
+
+    from grl_tpu_torch.cli.train import build_models
+    from grl_tpu_torch.engine import init_train_state
+
+    cnn, sia, unc = build_models(argparse.Namespace(arch2="siamese", seed=0), tiny=True)
+    return init_train_state(cnn, sia, unc, 5, num_feat=cnn.num_feat, device=device)
+
+
+def _card_steps(state, gen, n):
+    from grl_tpu_torch.engine import make_train_step
+
+    step = make_train_step(device="cuda")
+    for _ in range(n):
+        clips = torch.randn(4, 2, 64, 32, 3, device="cuda", generator=gen)
+        state, _ = step(state, clips, [0, 0, 3, 3], 1e-3)
+    return state
+
+
+def test_checkpoint_from_the_card_reads_back_bit_equal_on_the_cpu(gen, tmp_path):
+    from grl_tpu_torch.utils import load_train_state, save_train_state, serialization
+
+    state = _card_steps(_tiny_train_state("cuda"), gen, 2)
+    path = str(tmp_path / "checkpoint.npz")
+    save_train_state(state, {"epoch": 1, "best_top1": 0.5}, path)
+    cpu = _tiny_train_state("cpu")
+    extras = load_train_state(cpu, path)
+    assert int(extras["epoch"]) == 1 and cpu.step == state.step == 2
+    for key, module in state.models.items():
+        for name, value in module.state_dict().items():
+            assert torch.equal(cpu.models[key].state_dict()[name], value.cpu()) or name.endswith(
+                "num_batches_tracked"), f"{key}.{name}"
+    for p_card, p_cpu in zip(state.models.parameters(), cpu.models.parameters()):
+        assert torch.equal(cpu.optimizer.state[p_cpu]["momentum_buffer"],
+                           state.optimizer.state[p_card]["momentum_buffer"].cpu())
+    for k in ("corr", "uncorr"):
+        assert torch.equal(cpu.luts[k], state.luts[k].cpu())
+    got, want = serialization.snapshot(cpu).leaves(), serialization.snapshot(state).leaves()
+    assert all(a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(got, want))
+
+
+def test_async_snapshot_is_isolated_from_the_next_steps_on_the_card(gen, tmp_path, monkeypatch):
+    """Steps and an in-place edit queued on the card's stream right after
+    ``save`` do not reach the file: the snapshot is ordered before them.
+    The writer's pull is held back until they are queued."""
+    import threading
+
+    import numpy as np
+
+    from grl_tpu_torch.utils import AsyncCheckpointer, serialization
+
+    state = _card_steps(_tiny_train_state("cuda"), gen, 1)
+    want = serialization.snapshot(state).leaves()
+    gate, pull = threading.Event(), serialization.Snapshot._pull
+    monkeypatch.setattr(serialization.Snapshot, "_pull", lambda self: gate.wait(60) and pull(self))
+    ckpt = AsyncCheckpointer()
+    ckpt.save(state, {"epoch": 1}, str(tmp_path / "c.npz"))
+    state = _card_steps(state, gen, 3)
+    with torch.no_grad():
+        for p in state.models.parameters():
+            p.add_(1.0)
+    gate.set()
+    ckpt.wait()
+    with np.load(tmp_path / "c.npz") as data:
+        for i, leaf in enumerate(want):
+            np.testing.assert_array_equal(data[f"leaf_{i:05d}"], leaf)
+    assert ckpt.last_write_seconds > 0 and ckpt.last_bytes > 0

@@ -137,6 +137,11 @@ def test_port_imports_neither_jax_nor_grl_tpu():
         "import grl_tpu_torch\n"
         "for m in pkgutil.walk_packages(grl_tpu_torch.__path__, 'grl_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "entry = ['grl_tpu_torch.cli.train', 'grl_tpu_torch.cli.evaluate', 'grl_tpu_torch.data.jpeg',\n"
+        "         'grl_tpu_torch.data.catalogs', 'grl_tpu_torch.utils.serialization']\n"
+        "for name in entry:\n"
+        "    importlib.import_module(name)\n"
+        "assert all(name in sys.modules for name in entry)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'grl_tpu'))\n"
         "assert not bad, bad\n"
