@@ -57,7 +57,26 @@ descriptor), with seeded random weights. Phases:
 13. ``cli_mars``: a small dataset in MARS's on-disk layout (256x128 JPEGs
     written with PIL), ``cli.train -d mars`` for one epoch and
     ``cli.evaluate -d mars --rerank 1``, decoding through
-    ``data/jpeg.py`` (the native routine where it builds, PIL otherwise).
+    ``data/jpeg.py`` (the native routine where it builds, PIL otherwise);
+14. ``rerank_staged``: re-ranking of random unit 6144-d features at n =
+    19960 (1980 queries, 17980 query ∪ gallery items), past the staged
+    builder's cut at 16384: the staged builder (one kernel launch per
+    8192-row slab), the one-program builder and the staged builder with
+    the plain min-sum agree; seconds and peak memory of each;
+15. ``serve``: ``cli.extract export-model`` of ``cli_train``'s checkpoint
+    at full width (batch 32, 8 frames, 256x128), then ``serve --listen
+    unix:`` in this process driven by ``grl_tpu_torch.client.ServeClient``:
+    ping, describe of 64 clips against the same modules on the card, add
+    of 256 rows (index of 11310), plain and re-ranked rank, two concurrent
+    describe clients (packed dispatches), stats, save, shutdown; a second
+    daemon at capacity 16384 takes the staged re-ranking route. Both
+    routes' answers are held against ``re_ranking`` on the unpadded index
+    and against their own geometry with the plain min-sum;
+16. ``extract_cli``: ``cli.extract features`` (query and gallery) on
+    ``cli_train``'s checkpoint, then ``rank --rerank``.
+
+The kernel is also timed at the serve route's shape (32 x 11598 x 11598)
+and at one slab of the staged builder (1980 x 8192 x 19960).
 
 TF32 is off throughout (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``): the comparisons hold fp32 on
@@ -73,11 +92,15 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import faulthandler
 import importlib.util
 import json
+import os
 import shutil
+import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -87,14 +110,17 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from grl_tpu_torch import models, ops
 from grl_tpu_torch.cli import evaluate as cli_evaluate
+from grl_tpu_torch.cli import extract as cli_extract
 from grl_tpu_torch.cli import train as cli_train
+from grl_tpu_torch.client import ServeClient, ServeError
 from grl_tpu_torch.data import ClipDataset, ClipLoader, RandomPairSampler, SyntheticVideoReID, normalize
 from grl_tpu_torch.data import jpeg
 from grl_tpu_torch.data.sampling import dense_indices
 from grl_tpu_torch.engine import (Evaluator, Trainer, grl_loss_fn, init_train_state,
                                   make_descriptor_fn, make_train_step, metrics, step_decay_lr)
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
-from grl_tpu_torch.engine.rerank import re_ranking
+from grl_tpu_torch.engine import rerank as rerank_mod
+from grl_tpu_torch.engine.rerank import re_ranking, re_ranking_padded
 from grl_tpu_torch.ops.build import BUILD_INFO
 from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
@@ -103,6 +129,18 @@ from grl_tpu_torch.utils import AsyncCheckpointer, load_train_state, serializati
 # the MARS test split: 1980 queries, 11310 = 1980 + 9330 query ∪ gallery
 MARS_Q, MARS_EXTRA_G = 1980, 9330
 MARS_N = MARS_Q + MARS_Q + MARS_EXTRA_G  # 13290 rows of V
+# the staged re-ranking: 1980 queries, 17980 = 1980 + 16000 query ∪ gallery
+# items, n = 19960 above the staged builder's cut at 16384
+STAGED_Q, STAGED_EXTRA_G = 1980, 16000
+STAGED_N = STAGED_Q + STAGED_Q + STAGED_EXTRA_G
+STAGED_SLAB_SHAPE = (STAGED_Q, 8192, STAGED_N)  # one min-plus slab of its loop
+# the serve daemon: 16 re-ranked queries padded to the artifact's 32-clip
+# batch, an index of MARS's 11310 items (11054 at start + 256 enrolled) in a
+# buffer of capacity + one 256-row enrollment block
+SERVE = {"batch": 32, "seq_len": 8, "frame": (256, 128), "gallery": 11054, "add": 256,
+         "capacity": 11310, "staged_capacity": 16384, "queries": 16, "clips": 64, "dim": 6144}
+SERVE_N = SERVE["batch"] + SERVE["capacity"] + 256
+SERVE_SHAPE = (SERVE["batch"], SERVE_N, SERVE_N)  # V[:q_pad] x V
 # the card's peaks (H100 SXM data sheet): fp32 outside the tensor cores,
 # and device memory bandwidth
 PEAK_FP32_OPS = 67e12
@@ -126,8 +164,10 @@ FRAME = (256, 128)  # the reference's clip frames (config.py)
 # the CLI phases' working directories (``.gitignore`` lists build/)
 BUILD = Path(__file__).resolve().parent / "build"
 CLI_DIR = BUILD / "chip_cli"
-CLI_TRAIN = ["-d", "synthetic", "--synthetic-ids", "32", "-b", "16", "--rerank", "1",
+SYNTH_IDS = 32  # train ids of the CLI phases' synthetic catalog (= the checkpoint's classes)
+CLI_TRAIN = ["-d", "synthetic", "--synthetic-ids", str(SYNTH_IDS), "-b", "16", "--rerank", "1",
              "--logs-dir", str(CLI_DIR)]
+SERVE_DIR = BUILD / "chip_serve"
 # parameters no loss term reaches: they move by weight decay alone
 UNREACHED = ("siamese.featV.", "siamese.featV_bn.", "siamese_uncorr.classifierlinear.",
              "siamese_uncorr.classifierBN.")
@@ -261,13 +301,38 @@ def phase_kernels(gen):
         power_draw_w_during=float(power_w), max_abs_err=err)
     del a, b, out, plain, via_cdist
     torch.cuda.empty_cache()
+    by_shape = {what: kernel_time_at(shape, gen, max_mhz, sms)
+                for what, shape in (("serve_padded", SERVE_SHAPE), ("staged_slab", STAGED_SLAB_SHAPE))}
     return {
         "name": "minplus", "route": "cuda", "source": "grl_tpu_torch/csrc/minplus.cu",
         "replaces": "grl_tpu/ops/minplus.py:38", "shape": [m, n, k],
         "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "issue_bound_ms": issue_ms, "library_ms": library_ms,
+        "issue_bound_ms": issue_ms, "library_ms": library_ms, "by_shape": by_shape,
     }
+
+
+def kernel_time_at(shape, gen, max_mhz, sms):
+    """The kernel at one more of the path's shapes, on V-like aligned rows:
+    ms, plain ms, ``cdist(p=1)`` ms and the bounds, as at MARS."""
+    m, n, k = shape
+    a, b = row_normalized(m, k, gen, padded=True), row_normalized(n, k, gen, padded=True)
+    ms = cuda_ms(lambda: ops.minplus(a, b), reps=20)
+    err = float((ops.minplus(a, b) - ops.minplus_plain(a, b)).abs().max())
+    plain_ms = cuda_ms(lambda: ops.minplus_plain(a, b), reps=1)
+    library_ms = cuda_ms(lambda: torch.cdist(a, b, p=1), reps=1)
+    ops_ms = 2.0 * m * n * k / PEAK_FP32_OPS * 1e3
+    bytes_ms = 4.0 * (m * k + n * k + m * n) / PEAK_BYTES * 1e3
+    issue_ms = 2.0 * m * n * k / (sms * 128 * max_mhz * 1e6) * 1e3
+    row = {"shape": [m, n, k], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms, "issue_bound_ms": issue_ms,
+           "max_abs_err": err}
+    log("kernel_time", kernel="minplus", **row)
+    check(err <= KERNEL_TOL, f"minplus at {shape} max abs err {err}")
+    del a, b
+    torch.cuda.empty_cache()
+    return row
 
 
 @torch.no_grad()
@@ -872,6 +937,358 @@ def phase_cli_mars(device="cuda", extra=(), frame=FRAME):
     return launches
 
 
+def unit_rows(rows, dim, device, gen):
+    x = torch.randn(rows, dim, device=device, generator=gen)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def memory_mark(device):
+    """Allocated bytes now, with the peak counter reset (0 off the card)."""
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def phase_rerank_staged(gen, device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6144, force=False):
+    """Re-ranking past the staged builder's cut (n = 19960 > 16384): the
+    staged builder as ``re_ranking`` picks it, the one-program builder
+    (``staged=False``) and the staged builder with the plain min-sum, on
+    random unit features; each one's seconds, launches and peak memory.
+    ``force`` passes ``staged=True`` (a rehearsal below the cut)."""
+    cuda = torch.device(device).type == "cuda"
+    qf = unit_rows(q, dim, device, gen)
+    gf = torch.cat([qf, unit_rows(extra_g, dim, device, gen)])  # gallery = query ∪ gallery
+    n = q + gf.shape[0]
+    if not force:
+        check(n > 16384, f"n = {n} does not reach the staged builder")
+
+    def run(**kw):
+        box = [cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)]
+        at_entry = memory_mark(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        out = re_ranking(inputs_box=box, **({"staged": True} if force and "staged" not in kw else {}), **kw)
+        sync(device)
+        info = {"seconds": time.perf_counter() - t0, "launches": read_launches()["minplus"],
+                "at_entry_gib": at_entry / 2**30,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+        return out, info
+
+    run()  # warm: the first call pays library set-up
+    staged, staged_info = run()
+    one, one_info = run(staged=False)
+    plain, plain_info = run(min_sum_fn=ops.minplus_plain)
+    err_one = float((staged - one).abs().max())
+    err_plain = float((staged - plain).abs().max())
+    slabs = -(-n // rerank_mod._MINPLUS_CHUNK)
+    log("rerank_staged", queries=q, gallery=int(gf.shape[0]), n=n, dim=dim, staged=staged_info,
+        one_program=one_info, staged_plain_min_sum=plain_info, staged_vs_one_program_max_abs_diff=err_one,
+        staged_vs_plain_max_abs_diff=err_plain, slabs=slabs)
+    check(tuple(staged.shape) == (q, gf.shape[0]), f"staged shape {tuple(staged.shape)}")
+    check(bool(torch.isfinite(staged).all()), "staged re-ranking not finite")
+    if cuda:
+        check(staged_info["launches"] == slabs, f"staged builder launched {staged_info['launches']}, "
+                                                f"expected one per slab ({slabs})")
+        check(one_info["launches"] == 1 and plain_info["launches"] == 0, "one-program / plain launches")
+    check(err_one <= KERNEL_TOL, f"staged vs one-program builder: {err_one}")
+    check(err_plain <= KERNEL_TOL, f"staged builder, kernel vs plain min-sum: {err_plain}")
+    return staged_info["launches"]
+
+
+def extract_main(argv, device):
+    """``cli.extract.main`` on ``argv`` in this process (``--device`` goes
+    before the subcommand)."""
+    return cli_extract.main(cli_extract.build_parser().parse_args(["--device", device, *argv]))
+
+
+def median_ms(fn, reps=5):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def daemon(argv, device, sock):
+    """``serve --listen unix:<sock>`` in this process, on a thread; yields a
+    connected ``ServeClient``; on exit sends ``shutdown`` (its response in
+    ``client.bye``) and joins the daemon, re-raising what it raised."""
+    result = {}
+
+    def target():
+        try:
+            result["served"] = cli_extract.serve(cli_extract.build_parser().parse_args(
+                ["--device", device, "serve", *argv, "--listen", f"unix:{sock}"]))
+        except BaseException as e:  # noqa: BLE001 — re-raised in the main thread
+            result["error"] = e
+
+    if os.path.exists(sock):
+        os.unlink(sock)
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+    deadline = time.time() + 600
+    while not os.path.exists(sock):
+        if "error" in result:
+            raise result["error"]
+        check(thread.is_alive() and time.time() < deadline, "serve daemon did not start listening")
+        time.sleep(0.05)
+    client = ServeClient.connect(f"unix:{sock}", timeout=600)
+    try:
+        yield client
+    finally:
+        try:
+            client.bye = client.shutdown()
+        except ServeError as e:
+            client.bye = {"ok": False, "error": str(e)}
+        thread.join(timeout=60)
+        if thread.is_alive():
+            faulthandler.dump_traceback(all_threads=True)  # where it hangs, on stderr
+    check(not thread.is_alive(), "serve daemon did not stop after shutdown")
+    if "error" in result:
+        raise result["error"]
+
+
+def topk_rows(dist, k):
+    """Top-k of -dist per row in the daemon's order: (indices, scores)."""
+    scores, idx = rerank_mod.top_k(-dist, k)
+    return idx.cpu().numpy(), scores.cpu().numpy()
+
+
+def topk_agreement(idx, scores, ref):
+    """A daemon's top-k (gallery indices, scores) against reference
+    distances ``ref`` (q, g): ``max_abs_diff`` is the larger of each
+    score's distance from the reference at its own index and from the
+    reference's own k-th best, so matches that differ from the reference's
+    can only be entries within it of each other (near-ties, which fp32
+    sums in another order may swap); ``queries_equal`` counts the queries
+    whose matches are the reference's exactly."""
+    k = idx.shape[1]
+    ref_idx, ref_scores = topk_rows(torch.from_numpy(ref), k)
+    return {"max_abs_diff": max(float(np.abs(scores + np.take_along_axis(ref, idx, axis=1)).max()),
+                                float(np.abs(scores - ref_scores).max())),
+            "queries_equal": int((idx == ref_idx).all(axis=1).sum()), "queries": int(idx.shape[0])}
+
+
+def answer(resp):
+    """A rank response's matches: (gallery indices, scores) per query."""
+    return (np.array([[m["gallery"] for m in r["matches"]] for r in resp["results"]]),
+            np.array([[m["score"] for m in r["matches"]] for r in resp["results"]]))
+
+
+def concurrent_describes(address, clips_paths, requests=4):
+    """One client per npz of ``clips_paths``, all describing at once,
+    ``requests`` times each; returns every answer's features. A request of
+    1¼ batches leaves a ¼-batch tail that packs with another client's
+    ¼-batch request queued behind its full chunk."""
+    got, errors = [], []
+
+    def client(path):
+        try:
+            with ServeClient.connect(address, timeout=600) as c:
+                for _ in range(requests):
+                    got.append(c.describe(str(path))["features"])
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(path,)) for path in clips_paths]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "concurrent describe clients did not finish")
+    if errors:
+        raise errors[0]
+    return got
+
+
+def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
+    """``export-model`` of ``cli_train``'s checkpoint at full width, then two
+    ``serve --listen unix:`` daemons in this process driven by the port's
+    ``ServeClient``: the padded re-ranking route at capacity 11310 and the
+    staged route at capacity 16384, each rerank answer held against
+    ``re_ranking`` on the unpadded index and the daemon's own geometry with
+    the plain min-sum; launch counts zeroed just before each rerank request
+    and read just after."""
+    cuda = torch.device(device).type == "cuda"
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    sock = str(SERVE_DIR / "d.sock")
+    if len(sock) > 100:  # AF_UNIX paths are short
+        sock = os.path.relpath(sock)
+    ckpt = CLI_DIR / "checkpoint.npz"
+    model = SERVE_DIR / "model.npz"
+    (h, w), b, k = geo["frame"], geo["batch"], 10
+    t0 = time.perf_counter()
+    meta = extract_main(["export-model", "--checkpoint", str(ckpt), "--num-classes", str(SYNTH_IDS),
+                         "--batch", str(b), "--seq_len", str(geo["seq_len"]), "--height", str(h),
+                         "--width", str(w), "-o", str(model), *extra], device)
+    export_s = time.perf_counter() - t0
+    dim = meta["dim"]
+
+    # the same modules from the checkpoint, described directly on the device
+    args = cli_train.build_parser().parse_args([*CLI_TRAIN, *extra])
+    cnn, sia, unc = cli_train.build_models(args, tiny=args.tiny)
+    state = init_train_state(cnn, sia, unc, SYNTH_IDS, num_feat=cnn.num_feat, device=device)
+    load_train_state(state, str(ckpt))
+    describe = make_descriptor_fn(cnn.eval(), sia.eval())
+    rng = np.random.RandomState(0)
+    clips = rng.randint(0, 256, (geo["clips"], geo["seq_len"], h, w, 3), np.uint8)
+    np.savez(SERVE_DIR / "clips.npz", clips=clips)
+    np.savez(SERVE_DIR / "clips_5q.npz", clips=clips[: b + b // 4])  # 1¼ batches
+    np.savez(SERVE_DIR / "clips_1q.npz", clips=clips[: b // 4])
+    with torch.inference_mode():
+        want = torch.cat([describe(torch.from_numpy(clips[i : i + b]).to(device))
+                          for i in range(0, len(clips), b)]).cpu().numpy()
+    del state, cnn, sia, unc
+
+    feats = unit_rows(geo["gallery"] + geo["add"] + geo["queries"], dim, device, gen).cpu().numpy()
+    gallery, added, queries = np.split(feats, [geo["gallery"], geo["gallery"] + geo["add"]])
+    ids = rng.randint(0, 1000, geo["gallery"] + geo["add"])
+    cams = rng.randint(0, 6, geo["gallery"] + geo["add"])
+    np.savez(SERVE_DIR / "gallery.npz", features=gallery, pids=ids[: geo["gallery"]],
+             camids=cams[: geo["gallery"]])
+    common = ["--model", str(model), "--rerank-queries", str(geo["queries"]), "--topk", str(k), "--warmup"]
+
+    def routes(c, info):
+        """Plain and re-ranked rank on one daemon: answers, latencies, launches."""
+        info["rank_ms"] = median_ms(lambda: c.rank(features=queries, topk=k))
+        zero_launches()
+        sync(device)
+        rr = c.rank(features=queries, topk=k, rerank=True)
+        sync(device)
+        info["launches"] = read_launches()["minplus"]
+        info["rerank_ms"] = median_ms(lambda: c.rank(features=queries, topk=k, rerank=True))
+        if cuda:  # device time of one request of each kind (the daemon's thread is in this process)
+            info["rank_profile"] = device_profile(lambda: c.rank(features=queries, topk=k), top=4)
+            info["rerank_profile"] = device_profile(
+                lambda: c.rank(features=queries, topk=k, rerank=True), top=8)
+        check(rr["reranked"] and "warning" not in rr, f"rerank response {sorted(rr)}")
+        return answer(rr)
+
+    padded, staged = {}, {}
+    t0 = time.perf_counter()
+    with daemon(["--gallery", str(SERVE_DIR / "gallery.npz"), "--capacity", str(geo["capacity"]), *common],
+                device, sock) as c:
+        padded["ready_s"] = time.perf_counter() - t0
+        ping = c.ping()
+        check(ping["platform"] == torch.device(device).type and ping["rerank"] and not ping["rerank_staged"]
+              and ping["gallery"] == geo["gallery"] and ping["rerank_queries"] == b, f"ping {ping}")
+        t0 = time.perf_counter()
+        got = c.describe(str(SERVE_DIR / "clips.npz"))["features"]
+        describe_s = time.perf_counter() - t0
+        if cuda:
+            padded["describe_profile"] = device_profile(lambda: c.describe(str(SERVE_DIR / "clips.npz")), top=4)
+        desc_err = float(np.abs(got - want).max())
+        add = c.add(features=added, pids=ids[geo["gallery"]:], camids=cams[geo["gallery"]:])
+        check(add["gallery"] == geo["capacity"], f"add {add}")
+        rr_padded = routes(c, padded)
+        conc = concurrent_describes(f"unix:{sock}", [SERVE_DIR / "clips_5q.npz", SERVE_DIR / "clips_1q.npz"])
+        conc_err = max(float(np.abs(f - want[: len(f)]).max()) for f in conc)
+        stats = c.stats()
+        c.save(out=str(SERVE_DIR / "index.npz"))
+    check(c.bye["ok"], "shutdown")
+    t0 = time.perf_counter()
+    with daemon(["--gallery", str(SERVE_DIR / "index.npz"), "--capacity", str(geo["staged_capacity"]),
+                 *common], device, sock) as c:
+        staged["ready_s"] = time.perf_counter() - t0
+        ping_staged = c.ping()
+        check(ping_staged["rerank_staged"] and ping_staged["gallery"] == geo["capacity"], f"ping {ping_staged}")
+        rr_staged = routes(c, staged)
+
+    # references on the device, from each daemon's own distance matrices
+    # (the query-gallery block is a squared cosine distance, whose smallest
+    # entries, the queries' nearest items, are ordered by the rounding of
+    # the distance product; another product shape may pick other items):
+    # re_ranking over their unpadded valid slices (kernel) with the zero
+    # diagonal the padded builders give every item (``_euclidean``'s
+    # self-distance is fp32 noise, up to ~3e-4 on the card, which can rank
+    # a query below its most orthogonal gallery items: "noisy_diagonal"),
+    # and the whole padded geometry with the plain min-sum
+    with torch.inference_mode():
+        gf = torch.from_numpy(np.load(SERVE_DIR / "index.npz")["features"]).to(device)
+        qf = torch.from_numpy(queries).to(device)
+        nq, n = qf.shape[0], gf.shape[0]
+        refs = {}
+        for name, cap in (("padded", geo["capacity"]), ("staged", geo["staged_capacity"])):
+            buf = torch.zeros((cap + 256, dim), device=device)
+            buf[:n] = gf
+            qpad = torch.zeros((b, dim), device=device)
+            qpad[:nq] = qf
+            qg, qq, gg = cosine_distance(qpad, buf), _euclidean(qpad, qpad), _euclidean(buf, buf)
+            noisy = re_ranking(qg[:nq, :n], qq[:nq, :nq], gg[:n, :n])
+            qq_v, gg_v = qq[:nq, :nq].clone(), gg[:n, :n].clone()
+            qq_v.fill_diagonal_(0.0)
+            gg_v.fill_diagonal_(0.0)
+            unpadded = re_ranking(qg[:nq, :n], qq_v, gg_v)
+            if name == "padded":
+                plain = re_ranking_padded(qg, qq, gg, nq, n, min_sum_fn=ops.minplus_plain)[:nq, :n]
+            else:
+                plain = re_ranking(qg, qq, gg, valid=(nq, n), min_sum_fn=ops.minplus_plain)[:nq, :n]
+            refs[name] = unpadded.cpu().numpy(), plain.cpu().numpy(), noisy.cpu().numpy()
+    errs = {name: {"vs_unpadded": topk_agreement(*rr, refs[name][0]),
+                   "vs_plain_min_sum": topk_agreement(*rr, refs[name][1]),
+                   "vs_unpadded_noisy_diagonal": topk_agreement(*rr, refs[name][2])}
+            for name, rr in (("padded", rr_padded), ("staged", rr_staged))}
+    staged_vs_padded = {"matches_equal": bool(np.array_equal(rr_staged[0], rr_padded[0])),
+                        "max_abs_diff": float(np.abs(rr_staged[1] - rr_padded[1]).max())}
+    log("serve", export_s=export_s, artifact_bytes=model.stat().st_size, export_batch=b, frames=geo["seq_len"],
+        frame=list(geo["frame"]), describe_clips=len(clips), describe_s=describe_s,
+        describe_clips_per_s=len(clips) / describe_s, describe_max_abs_diff=desc_err,
+        concurrent_describe_max_abs_diff=conc_err, describe_batching=stats["describe_batching"],
+        padded=padded, staged=staged, rerank_errors=errs, staged_vs_padded=staged_vs_padded,
+        rerank_shape=[b, b + geo["capacity"] + 256], staged_n=b + geo["staged_capacity"] + 256,
+        ops=stats["ops"])
+    check(desc_err <= 1e-4 and conc_err <= 1e-4, f"daemon describe vs the modules: {desc_err}, {conc_err}")
+    check(stats["describe_batching"]["packed"] > 0, f"no packed dispatch: {stats['describe_batching']}")
+    check(staged_vs_padded["max_abs_diff"] <= KERNEL_TOL, f"staged vs padded route: {staged_vs_padded}")
+    for name, e in errs.items():
+        for what in ("vs_unpadded", "vs_plain_min_sum"):
+            check(e[what]["max_abs_diff"] <= KERNEL_TOL, f"{name} route {what}: {e[what]}")
+    if cuda:
+        slabs = -(-(b + geo["staged_capacity"] + 256) // rerank_mod._MINPLUS_CHUNK)
+        check(padded["launches"] == 1, f"padded route launched the kernel {padded['launches']} times")
+        check(staged["launches"] == slabs, f"staged route launched {staged['launches']}, expected {slabs}")
+    return {"serve_padded": padded["launches"], "serve_staged": staged["launches"]}
+
+
+def phase_extract_cli(device="cuda", extra=()):
+    """``cli.extract features`` for query and gallery on ``cli_train``'s
+    checkpoint, then ``rank --rerank``, in this process; the ranking is
+    held against the same re-ranking with the plain min-sum."""
+    common = ["-d", "synthetic", "--synthetic-ids", str(SYNTH_IDS), "--logs-dir", str(CLI_DIR),
+              "--checkpoint", str(CLI_DIR / "checkpoint.npz"), *extra]
+    t0 = time.perf_counter()
+    path = {split: str(SERVE_DIR / f"features_{split}.npz") for split in ("query", "gallery")}
+    for split in path:
+        extract_main(["features", *common, "--split", split, "-o", path[split]], device)
+    features_s = time.perf_counter() - t0
+    zero_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    results = extract_main(["rank", "--query", path["query"], "--gallery", path["gallery"], "--topk", "10",
+                            "--rerank", "-o", str(SERVE_DIR / "ranks.json")], device)
+    sync(device)
+    rank_s = time.perf_counter() - t0
+    launches = read_launches()
+    qf, gf = (torch.from_numpy(np.load(path[s])["features"]).to(device) for s in ("query", "gallery"))
+    with torch.inference_mode():
+        plain = re_ranking(cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf),
+                           min_sum_fn=ops.minplus_plain).cpu().numpy()
+    idx, scores = answer({"results": results})
+    agree = topk_agreement(idx, scores, plain)
+    log("extract_cli", queries=int(qf.shape[0]), gallery=int(gf.shape[0]), features_s=features_s, rank_s=rank_s,
+        launches=launches, vs_plain_min_sum=agree)
+    if torch.device(device).type == "cuda":
+        check(launches["minplus"] == 1, f"rank --rerank launched the kernel {launches['minplus']} times")
+    check(len(results) == qf.shape[0] and np.isfinite(scores).all(), "rank --rerank results")
+    check(agree["max_abs_diff"] <= KERNEL_TOL, f"rank --rerank vs plain min-sum: {agree}")
+    return launches
+
+
 def host_inventory():
     """What the machine offers the data plane and the scalar writer."""
     def version(name):
@@ -922,14 +1339,22 @@ def main():
     torch.cuda.empty_cache()
     cli_eval_launches = phase_cli_evaluate()
     mars_launches = phase_cli_mars()
+    torch.cuda.empty_cache()
+    staged_launches = phase_rerank_staged(gen)
+    torch.cuda.empty_cache()
+    serve_launches = phase_serve(gen)
+    torch.cuda.empty_cache()
+    rank_cli_launches = phase_extract_cli()
 
-    # launches on this slice's path (cli.train with its re-ranked
-    # evaluation); every other path's count beside it
-    entry["launches"] = cli_train_launches["minplus"]
+    # launches on this slice's path (the serve daemon's padded re-ranking
+    # route); every other path's count beside it
+    entry["launches"] = serve_launches["serve_padded"]
     entry["launches_by_path"] = {"evaluate": launches["minplus"], "train": train_launches["minplus"],
                                  "cli_train": cli_train_launches["minplus"],
                                  "cli_evaluate": cli_eval_launches["minplus"],
-                                 "cli_mars_evaluate": mars_launches["minplus"]}
+                                 "cli_mars_evaluate": mars_launches["minplus"],
+                                 "rerank_staged": staged_launches, **serve_launches,
+                                 "rank_cli": rank_cli_launches["minplus"]}
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [entry]}))

@@ -8,7 +8,8 @@
   micro-batch and added into per-tracklet sums on the device;
 - rrs_test path: one clip per tracklet, rows written in order;
 - gallery := query ∪ gallery, cosine distance ``-qf @ gfᵀ``, optional
-  k-reciprocal re-ranking on the device (with the min-plus kernel), and the
+  k-reciprocal re-ranking on the device (with the min-plus kernel; the
+  staged builder above n = 16384 items, as grl_tpu), and the
   MARS protocol on the device; ``save_distmat`` writes the final distance
   matrix and ids to an npz with grl_tpu's keys.
 
@@ -172,9 +173,13 @@ class Evaluator:
             print("Applying person re-ranking ...")
             warn_if_degenerate(qf.shape[0] + gf.shape[0], self.rerank_k1, self.rerank_k2)
             # the reference's inputs: q_g is the COSINE distance matrix while
-            # q_q and g_g are euclidean
+            # q_q and g_g are euclidean. Handed over in a box that re_ranking
+            # empties, so the three matrices free once its builder has read
+            # them (the staged builder, above n = 16384, relies on that)
+            box = [distmat, _euclidean(qf, qf), _euclidean(gf, gf)]
+            distmat = None
             distmat = re_ranking(
-                distmat, _euclidean(qf, qf), _euclidean(gf, gf),
+                inputs_box=box,
                 k1=self.rerank_k1, k2=self.rerank_k2, lambda_value=self.rerank_lambda,
             )
 

@@ -289,3 +289,84 @@ def test_async_snapshot_is_isolated_from_the_next_steps_on_the_card(gen, tmp_pat
         for i, leaf in enumerate(want):
             np.testing.assert_array_equal(data[f"leaf_{i:05d}"], leaf)
     assert ckpt.last_write_seconds > 0 and ckpt.last_bytes > 0
+
+
+def test_staged_and_padded_builders_on_card_match_plain_min_sum(gen, monkeypatch):
+    """The staged builder (3 min-plus slabs, ragged row blocks) and the
+    capacity-padded builder launch the kernel and agree with the plain
+    min-sum and with the one-program builder."""
+    from grl_tpu_torch.engine import rerank
+
+    monkeypatch.setattr(rerank, "_MINPLUS_CHUNK", 64)
+    monkeypatch.setattr(rerank, "_STAGE_BLOCK", 48)
+    feats = torch.randn(150, 64, device="cuda", generator=gen)
+    feats = feats / feats.norm(dim=1, keepdim=True)
+    qf, gf = feats[:30], feats
+    dists = cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)
+    before = minplus.launches
+    staged = rerank.re_ranking(*dists, staged=True)
+    torch.cuda.synchronize()
+    assert minplus.launches == before + 3  # ceil(180 / 64) slabs
+    torch.testing.assert_close(staged, rerank.re_ranking(*dists, staged=True, min_sum_fn=minplus_plain),
+                               rtol=0, atol=TOL)
+    torch.testing.assert_close(staged, rerank.re_ranking(*dists, staged=False), rtol=0, atol=TOL)
+
+    # the serve daemon's geometry: 30 of 32 query rows, 150 of 200 gallery
+    # rows valid, garbage in the padding
+    pads = [torch.full((32, 200), 1e6, device="cuda"), torch.full((32, 32), -5.0, device="cuda"),
+            torch.full((200, 200), 3e-8, device="cuda")]
+    for pad, d in zip(pads, dists):
+        pad[: d.shape[0], : d.shape[1]] = d
+    before = minplus.launches
+    padded = rerank.re_ranking_padded(*pads, 30, 150)
+    torch.cuda.synchronize()
+    assert minplus.launches == before + 1
+    want = rerank.re_ranking_padded(*pads, 30, 150, min_sum_fn=minplus_plain)
+    torch.testing.assert_close(padded[:30, :150], want[:30, :150], rtol=0, atol=TOL)
+    torch.testing.assert_close(padded[:30, :150], staged, rtol=0, atol=TOL)
+    masked = rerank.re_ranking(*pads, valid=(30, 150))
+    torch.testing.assert_close(masked[:30, :150], staged, rtol=0, atol=TOL)
+
+
+def test_artifact_exported_on_card_serves_in_process(gen, tmp_path):
+    """export-model on the card, then the daemon over stdin/stdout in this
+    process: the program's descriptors equal the modules', and a re-ranked
+    rank launches the min-plus kernel once."""
+    import io
+    import json
+
+    import numpy as np
+
+    from grl_tpu_torch.cli import extract
+    from grl_tpu_torch.engine import make_descriptor_fn
+    from grl_tpu_torch.utils import save_train_state
+
+    state = _tiny_train_state("cuda")
+    save_train_state(state, {"epoch": 0}, str(tmp_path / "ckpt.npz"))
+    parser = extract.build_parser()
+    extract.main(parser.parse_args([
+        "--device", "cuda", "export-model", "--checkpoint", str(tmp_path / "ckpt.npz"), "--tiny",
+        "--num-classes", "5", "--batch", "4", "--seq_len", "2", "--height", "64", "--width", "32",
+        "-o", str(tmp_path / "model.npz")]))
+    rng = np.random.RandomState(0)
+    clips = rng.randint(0, 256, (6, 2, 64, 32, 3), np.uint8)
+    np.savez(tmp_path / "clips.npz", clips=clips)
+    feats = rng.randn(44, 384).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    np.savez(tmp_path / "gallery.npz", features=feats[:40])
+    np.savez(tmp_path / "queries.npz", features=feats[40:])
+    reqs = [{"op": "ping"}, {"op": "describe", "clips": str(tmp_path / "clips.npz"), "out": str(tmp_path / "f.npz")},
+            {"op": "rank", "features": str(tmp_path / "queries.npz"), "rerank": True, "topk": 5},
+            {"op": "shutdown"}]
+    out = io.StringIO()
+    before = minplus.launches
+    extract.serve(parser.parse_args(["--device", "cuda", "serve", "--model", str(tmp_path / "model.npz"),
+                                     "--gallery", str(tmp_path / "gallery.npz"), "--rerank-queries", "4"]),
+                  inp=io.StringIO("".join(json.dumps(r) + "\n" for r in reqs)), out=out)
+    ping, desc, rank, bye = [json.loads(line) for line in out.getvalue().splitlines()]
+    assert ping["platform"] == "cuda" and desc["ok"] and rank["reranked"] and bye["ok"]
+    assert minplus.launches == before + 1
+    with torch.inference_mode():
+        want = make_descriptor_fn(state.models["cnn"].eval(), state.models["siamese"].eval())(
+            torch.from_numpy(clips).cuda()).cpu().numpy()
+    np.testing.assert_allclose(np.load(tmp_path / "f.npz")["features"], want, rtol=0, atol=1e-4)

@@ -138,7 +138,8 @@ def test_port_imports_neither_jax_nor_grl_tpu():
         "for m in pkgutil.walk_packages(grl_tpu_torch.__path__, 'grl_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "entry = ['grl_tpu_torch.cli.train', 'grl_tpu_torch.cli.evaluate', 'grl_tpu_torch.data.jpeg',\n"
-        "         'grl_tpu_torch.data.catalogs', 'grl_tpu_torch.utils.serialization']\n"
+        "         'grl_tpu_torch.data.catalogs', 'grl_tpu_torch.utils.serialization',\n"
+        "         'grl_tpu_torch.cli.extract', 'grl_tpu_torch.client']\n"
         "for name in entry:\n"
         "    importlib.import_module(name)\n"
         "assert all(name in sys.modules for name in entry)\n"
