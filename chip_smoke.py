@@ -17,7 +17,8 @@ descriptor), with seeded random weights. Phases:
    beside its plain version, one library call computing the same function,
    its data-sheet bound and its instruction-issue bound, with the SM clock
    and power draw sampled while it runs;
-4. the full-width descriptor on the card against the same model on the CPU;
+4. the full-width descriptor on the card against the same model on the CPU
+   (its warm rates are ``descriptor_rates``, phase 17);
 5. the slice: ``Evaluator(..., rerank=True).evaluate`` over a synthetic
    catalog at 256x128, with every kernel's launch count zeroed just
    before and read just after; the re-ranked distance matrix is checked
@@ -73,14 +74,39 @@ descriptor), with seeded random weights. Phases:
     routes' answers are held against ``re_ranking`` on the unpadded index
     and against their own geometry with the plain min-sum;
 16. ``extract_cli``: ``cli.extract features`` (query and gallery) on
-    ``cli_train``'s checkpoint, then ``rank --rerank``.
+    ``cli_train``'s checkpoint, then ``rank --rerank``;
+17. ``model_bf16`` (after the slice): the full-width descriptor with
+    ``compute_dtype=torch.bfloat16`` against the card's fp32 descriptor
+    of the same weights and against the same bf16 modules on the CPU at 2
+    clips (per-row cosine of the pre-neck features, as they are and less
+    the batch's mean, held to ``BF16_COSINE_MIN``; the descriptor's
+    per-segment cosine and max abs printed beside); cuDNN's
+    BatchNorm on a bf16 input in train mode (bf16 out, fp32 unbiased
+    running statistics); ``descriptor_rates``: warm ms, clips/s and peak
+    memory at micro-batch 32 and 96 of fp32, fp32 with TF32 on, bf16 and
+    bf16 with the modules in channels_last, fp32 first and last;
+18. ``train_bf16`` (after ``train_eval``): ``Trainer.train`` at batch 16
+    with the ``cli.train --bf16`` modules (warm step ms, peak memory, a
+    profile); ``precision_steps``: one full-width step in bf16, fp32 and
+    fp32 with TF32 on against an fp64 step of the same weights, and the
+    step ms at batch 16 of fp32, TF32, bf16 and bf16 channels_last; the
+    ``tf32`` line gathers the TF32 numbers;
+19. ``cli_bf16`` (last): ``cli.train --bf16 --rerank 1`` for one epoch and
+    ``cli.evaluate --bf16 --rerank 1`` on its checkpoint (the min-plus
+    kernel launched, the re-ranking equal to the plain min-sum's), then
+    ``export-model --bf16`` at full width and a daemon's ``describe``
+    against the in-process bf16 descriptor, with the artifact's bytes.
 
 The kernel is also timed at the serve route's shape (32 x 11598 x 11598)
 and at one slab of the staged builder (1980 x 8192 x 19960).
 
-TF32 is off throughout (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32``): the comparisons hold fp32 on
-the card against fp32 on the CPU or in plain PyTorch.
+The script runs under the CLIs' precision policy
+(``grl_tpu_torch.set_precision``: TF32 off in cuDNN and cuBLAS, bf16
+products reduced in fp32) except inside the phases that measure TF32: the
+comparisons hold fp32 on the card against fp32 on the CPU or in plain
+PyTorch. The CLIs set that policy themselves: before each CLI ``main``
+(and the serve daemons) the script turns the flags on, and checks that
+they are off inside the run and after it.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
@@ -108,7 +134,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from grl_tpu_torch import models, ops
+from grl_tpu_torch import models, ops, precision_flags, set_precision, set_precision_flags
 from grl_tpu_torch.cli import evaluate as cli_evaluate
 from grl_tpu_torch.cli import extract as cli_extract
 from grl_tpu_torch.cli import train as cli_train
@@ -144,9 +170,27 @@ SERVE_SHAPE = (SERVE["batch"], SERVE_N, SERVE_N)  # V[:q_pad] x V
 # the card's peaks (H100 SXM data sheet): fp32 outside the tensor cores,
 # and device memory bandwidth
 PEAK_FP32_OPS = 67e12
+PEAK_BF16_OPS = 989e12  # dense, tensor cores
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5  # fp32, sums of row-normalized values (≤ 1) in another order
 MODEL_TOL = 1e-3   # fp32 card vs fp32 CPU through ~60 conv layers
+# the full-width bf16 model against fp32, and bf16 on the card against
+# bf16 on the CPU: the lowest per-row cosine of the TRL features that enter
+# the BN-neck, as they are ("uncentred") and each less its batch's mean
+# feature ("centred"). At random weights every clip's features are nearly
+# alike, so the uncentred cosine reads near 1 whatever the clip, and the
+# centred one reads what tells clips apart (a swapped clip reads -1).
+# Card against CPU, where both round alike, both are held (readings on
+# NVIDIA H100 80GB HBM3 over four draws of clips: centred 0.714-0.986,
+# uncentred 0.9986-0.9998). Against fp32 the clip-to-clip differences are
+# below bf16's rounding (centred -0.86 to 0.61, also with clips of
+# distinct content), so only the uncentred cosine is held, against gross
+# faults (readings 0.986-0.997). The casts themselves are
+# held by the CPU tests against grl_tpu. The descriptor's own cosines and
+# max abs are printed beside, unchecked: the BN-neck scales its input's
+# error up by the printed neck gain
+BF16_COSINE_MIN = {"vs_fp32": {"uncentred": 0.98},
+                   "card_vs_cpu": {"centred": 0.5, "uncentred": 0.998}}
 # One full-width training step, card against CPU (TF32 off; the measures
 # are those of ``compare_steps``). In fp64 both must compute the same
 # function: each loss term, each parameter's update, the BN statistics and
@@ -379,14 +423,138 @@ def phase_model(gen):
     log("model_check", descriptor_dim=int(d_gpu.shape[1]), max_abs_diff_card_vs_cpu=err,
         segment_norms=norms, card_seconds=gpu_s, cpu_seconds=cpu_s)
     check(err <= MODEL_TOL, f"descriptor card vs CPU max abs diff {err}")
-
-    # warm descriptor rate at the slice's micro-batch, on the card only
-    batch = torch.randint(0, 256, (32, 8, 256, 128, 3), dtype=torch.uint8, device="cuda",
-                          generator=gen)
-    with torch.inference_mode():
-        ms = cuda_ms(lambda: make_descriptor_fn(cnn, sia)(batch), reps=3)
-    log("descriptor_rate", micro_batch=32, ms_per_batch=ms, clips_per_s=32e3 / ms, tf32=False)
     return cnn, sia
+
+
+def all_precision_flags(on):
+    """Every flag of the precision policy (TF32 in cuDNN and cuBLAS,
+    cuBLAS's bf16 reductions) on or off; the policy has them off."""
+    set_precision_flags(dict.fromkeys(precision_flags(), on))
+
+
+def check_fp32_policy(what, flags):
+    check(not any(flags.values()), f"{what} ran outside the precision policy: {flags}")
+
+
+@contextlib.contextmanager
+def tf32(on):
+    """TF32 on or off inside; the script's policy restored after."""
+    all_precision_flags(on)
+    try:
+        yield
+    finally:
+        set_precision()
+
+
+def descriptor_ms(cnn, sia, batch, reps=3):
+    """Warm CUDA-event ms of one descriptor call on ``batch``, and the peak
+    memory of the calls (GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: make_descriptor_fn(cnn, sia)(batch), reps=reps)
+    return {"ms": ms, "clips_per_s": batch.shape[0] * 1e3 / ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+@torch.no_grad()
+def bn_bf16_check(gen):
+    """cuDNN's BatchNorm on a bf16 input with fp32 parameters, in train mode:
+    bf16 out, fp32 running statistics with the unbiased variance (as
+    grl_tpu's ``nn/norm.py``), against the same on the CPU."""
+    x = torch.randn(8, 64, 16, 8, device="cuda", generator=gen).to(torch.bfloat16)
+    out = {}
+    for device in ("cuda", "cpu"):
+        bn = torch.nn.BatchNorm2d(64).to(device).train()
+        y = bn(x.to(device))
+        out[device] = (y, bn.running_var.clone())
+    x64 = x.double()
+    unbiased = 0.9 + 0.1 * x64.var(dim=(0, 2, 3), unbiased=True)
+    (yg, vg), (yc, vc) = out["cuda"], out["cpu"]
+    row = {"out_dtype": str(yg.dtype), "running_var_dtype": str(vg.dtype),
+           "running_var_vs_unbiased": float((vg.double() - unbiased).abs().max()),
+           "out_card_vs_cpu_max_abs": float((yg.float().cpu() - yc.float()).abs().max())}
+    check(yg.dtype == torch.bfloat16 and vg.dtype == torch.float32, f"card BN on bf16: {row}")
+    check(row["running_var_vs_unbiased"] <= 1e-5, f"card BN running variance: {row}")
+    check(row["out_card_vs_cpu_max_abs"] <= 4 * 2.0**-8 * float(yc.float().abs().max()), f"card BN vs CPU: {row}")
+    return row
+
+
+def phase_model_bf16(gen):
+    """The full-width bf16 descriptor: against the card's fp32 descriptor of
+    the same weights and against bf16 on the CPU; warm rates of fp32 (TF32
+    off and on), bf16, and bf16 with the modules in channels_last."""
+    fp32 = grl_modules("cuda", seeds=(6, 7, 8))
+    clips = torch.randint(0, 256, (8, 8, *FRAME, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    calibrate_grl(*fp32, clips)
+    clips = clips[:4]
+    cnn32, sia32 = fp32[0].eval(), fp32[1].eval()
+    cnn, sia, _ = (m.eval() for m in recast(fp32, torch.bfloat16))
+    check(cnn.backbone.base.conv1.compute_dtype == torch.bfloat16, "bf16 modules")
+    def run(cnn, sia, clips):
+        """(descriptor, TRL features before the BN-neck: per clip, per frame)"""
+        with torch.inference_mode():
+            x_uncorr, x_corr, _ = cnn.backbone(normalize(clips))
+            f_uncorr, f_corr = cnn.temporal_learning_block((x_uncorr, x_corr))
+            return make_descriptor_fn(cnn, sia)(clips), f_uncorr, f_corr.flatten(0, 1)
+
+    def cos(a, b, centre=False):
+        a, b = a.float().cpu(), b.float().cpu()
+        if centre:
+            a, b = a - a.mean(0), b - b.mean(0)
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
+
+    def distances(a, b, limit):
+        (da, ua, ca), (db, ub, cb) = a, b
+        c = da.shape[1] // 3
+        return {"descriptor_min_cosine_per_segment": [cos(da[:, i * c:(i + 1) * c], db[:, i * c:(i + 1) * c])
+                                                      for i in range(3)],
+                "descriptor_max_abs": float((da.cpu() - db.cpu()).abs().max()),
+                "pre_neck_min_cosine": {"uncentred": {"uncorr": cos(ua, ub), "corr": cos(ca, cb)},
+                                        "centred": {"uncorr": cos(ua, ub, True), "corr": cos(ca, cb, True)}},
+                "limit": {"pre_neck_min_cosine": limit}}
+
+    out16, out32 = run(cnn, sia, clips), run(cnn32, sia32, clips)
+    vs_fp32 = distances(out16, out32, BF16_COSINE_MIN["vs_fp32"])
+    # the same bf16 modules on the CPU, at 2 clips
+    cpu_cnn, cpu_sia, _ = recast((cnn, sia, fp32[2]), torch.bfloat16, device="cpu")
+    t0 = time.perf_counter()
+    out_cpu = run(cpu_cnn.eval(), cpu_sia.eval(), clips[:2].cpu())
+    cpu_s = time.perf_counter() - t0
+    del cpu_cnn, cpu_sia
+    card_vs_cpu = distances([o[: len(p)] for o, p in zip(out16, out_cpu)], out_cpu, BF16_COSINE_MIN["card_vs_cpu"])
+    # how much the BN-neck scales an error of its input up: |mean| / std of
+    # its calibrated statistics (median over channels)
+    neck_gain = {k: float((bn.running_mean.abs() / (bn.running_var + bn.eps).sqrt()).median())
+                 for k, bn in (("corr", cnn32.corr_bn), ("uncorr", cnn32.uncorr_bn))}
+    bn = bn_bf16_check(gen)
+    d16 = out16[0]
+    log("model_bf16", dtype=str(d16.dtype), vs_fp32_on_card=vs_fp32, card_vs_cpu_bf16=card_vs_cpu,
+        cpu_seconds=cpu_s, neck_gain=neck_gain, batchnorm=bn)
+    check(d16.dtype == torch.float32 and bool(torch.isfinite(d16).all()), "bf16 descriptor dtype or values")
+    for what, r in (("bf16 vs fp32 on the card", vs_fp32), ("bf16 card vs CPU", card_vs_cpu)):
+        for kind, limit in r["limit"]["pre_neck_min_cosine"].items():
+            check(min(r["pre_neck_min_cosine"][kind].values()) >= limit, f"features {what}, {kind}: {r}")
+
+    # warm rates; each configuration in turn, fp32 first and last
+    rates = {}
+    for mb in (32, 96):
+        batch = torch.randint(0, 256, (mb, 8, *FRAME, 3), dtype=torch.uint8, device="cuda", generator=gen)
+        rates[f"fp32_mb{mb}"] = descriptor_ms(cnn32, sia32, batch)
+        with tf32(True):
+            rates[f"fp32_tf32_mb{mb}"] = descriptor_ms(cnn32, sia32, batch)
+        rates[f"bf16_mb{mb}"] = descriptor_ms(cnn, sia, batch)
+        # channels_last: the modules' 4-d weights in NHWC (the frames that
+        # enter the trunk are an NHWC view of the clips already)
+        cnn.to(memory_format=torch.channels_last)
+        rates[f"bf16_channels_last_mb{mb}"] = descriptor_ms(cnn, sia, batch)
+        cnn.to(memory_format=torch.contiguous_format)
+        rates[f"fp32_again_mb{mb}"] = descriptor_ms(cnn32, sia32, batch)
+        del batch
+    log("descriptor_rates", frames=8, frame=list(FRAME), **rates)
+    del cnn, sia, cnn32, sia32, fp32
+    torch.cuda.empty_cache()
+    return rates
 
 
 def phase_slice(cnn, sia):
@@ -473,11 +641,24 @@ def phase_mars(gen):
     log("mars_profile", **device_profile(run))
 
 
-def grl_modules(device, seeds=(0, 1, 2)):
-    cnn = models.create("resnet50_grl", device=device, seed=seeds[0])
-    sia = models.create("siamese", device=device, seed=seeds[1], input_num=cnn.num_feat, output_num=512)
-    unc = models.create("siamese_video", device=device, seed=seeds[2], input_num=cnn.num_feat)
+def grl_modules(device, seeds=(0, 1, 2), compute_dtype=None):
+    cd = compute_dtype
+    cnn = models.create("resnet50_grl", device=device, seed=seeds[0], compute_dtype=cd)
+    sia = models.create("siamese", device=device, seed=seeds[1], input_num=cnn.num_feat, output_num=512,
+                        compute_dtype=cd)
+    unc = models.create("siamese_video", device=device, seed=seeds[2], input_num=cnn.num_feat, compute_dtype=cd)
     return cnn, sia, unc
+
+
+def recast(modules, compute_dtype, device=None):
+    """Copies of ``modules`` with the same weights and statistics, built
+    with ``compute_dtype`` (on ``device``, default the modules')."""
+    cnn, sia, unc = modules
+    device = device or next(cnn.parameters()).device
+    out = grl_modules(device, compute_dtype=compute_dtype)
+    for new, old in zip(out, modules):
+        new.load_state_dict(old.state_dict())
+    return out
 
 
 def calibrate_grl(cnn, sia, unc, clips_u8):
@@ -559,9 +740,12 @@ def phase_train_check(gen):
             check(got[k] <= limit, f"training step card vs CPU, {what}, {k}: {got[k]} > {limit}")
 
 
-def phase_train(gen):
+def phase_train(gen, bf16=False):
     """``Trainer.train`` at the reference batch through the user's entry
-    points; every kernel's launch count is zeroed just before."""
+    points; every kernel's launch count is zeroed just before. ``bf16``
+    trains the modules ``cli.train --bf16`` builds (phases ``train_bf16``,
+    ``train_bf16_profile``)."""
+    name = "train_bf16" if bf16 else "train"
     t0 = time.perf_counter()
     ds = SyntheticVideoReID(num_train_ids=32, num_test_ids=12, tracklets_per_id=2, num_cams=2,
                             frames_range=(8, 24), height=FRAME[0], width=FRAME[1], seed=0)
@@ -569,13 +753,19 @@ def phase_train(gen):
     loader = ClipLoader(ClipDataset(ds.train, 8, "rrs_train", *FRAME, seed=0), batch_size=batch,
                         sampler=RandomPairSampler(ds.train, seed=0), drop_last=True, workers=4,
                         max_batches=steps)
-    cnn, sia, unc = grl_modules("cuda", seeds=(3, 4, 5))
+    if bf16:
+        cnn, sia, unc = (m.to("cuda") for m in cli_train.build_models(
+            cli_train.build_parser().parse_args(["--bf16", "--seed", "3"])))
+        check(cnn.backbone.base.conv1.compute_dtype == torch.bfloat16
+              and unc.classifierlinear.compute_dtype == torch.bfloat16, "cli.train --bf16 builds bf16 modules")
+    else:
+        cnn, sia, unc = grl_modules("cuda", seeds=(3, 4, 5))
     calibrate_grl(cnn, sia, unc, torch.randint(0, 256, (4, 8, *FRAME, 3), dtype=torch.uint8,
                                                device="cuda", generator=gen))
     state = init_train_state(cnn, sia, unc, ds.num_train_pids, num_feat=cnn.num_feat, device="cuda")
     params0 = {n: p.detach().clone() for n, p in state.models.named_parameters()}
     stats0 = {n: m.running_mean.clone() for n, m in bn_layers(state.models)}
-    log("train_setup", train_tracklets=len(ds.train), ids=ds.num_train_pids, batch=batch,
+    log(f"{name}_setup", train_tracklets=len(ds.train), ids=ds.num_train_pids, batch=batch,
         frames=8, steps=len(loader), catalog_seconds=time.perf_counter() - t0, lr=TRAIN_LR)
 
     step = make_train_step(device="cuda")
@@ -620,19 +810,20 @@ def phase_train(gen):
                                torch.as_tensor(targets, dtype=torch.int64, device=clips.device))
         total.backward()
     step_flop = counter.get_total_flops()
-    bound_ms = step_flop / PEAK_FP32_OPS * 1e3
+    bound_ms = step_flop / (PEAK_BF16_OPS if bf16 else PEAK_FP32_OPS) * 1e3
     # where a step's device time goes: two more steps of a copy, profiled
     probe = copy.deepcopy(state)
     profile = device_profile(lambda: [step(probe, clips, targets, TRAIN_LR) for _ in range(2)], top=15)
     del probe
-    log("train", steps=n, batch=batch, frames=8, seconds=seconds, loss=[t["loss"] for t in trajectory],
+    dtypes = {str(p.dtype) for p in state.models.parameters()} | {str(v.dtype) for v in state.luts.values()}
+    log(name, steps=n, batch=batch, frames=8, seconds=seconds, loss=[t["loss"] for t in trajectory],
         trajectory=trajectory, warm_step_ms=warm_ms, warm_clips_per_s=batch * 1e3 / warm_ms,
         step_tflop=step_flop / 1e12, step_bound_ms=bound_ms, achieved_tflops=step_flop / warm_ms / 1e9,
         step_event_ms=step_ms, trainer=stats, peak_gib=peak_gib,
-        tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32, cudnn=torch.backends.cudnn.allow_tf32),
-        ids_seen=len(ids))
-    log("train_profile", steps=2, **profile)
+        precision_flags=precision_flags(), state_dtypes=sorted(dtypes), ids_seen=len(ids))
+    log(f"{name}_profile", steps=2, **profile)
     check(n >= 8, f"only {n} training steps")
+    check(dtypes == {"torch.float32"}, f"parameters and luts stay fp32: {dtypes}")
     check(all(np.isfinite(v) for t in trajectory for v in t.values()), "training metrics not finite")
     check(all(np.isfinite(v) for v in stats.values()), f"trainer stats not finite: {stats}")
     check(not unchanged, f"parameters the loss reaches did not change: {unchanged[:5]}")
@@ -643,6 +834,63 @@ def phase_train(gen):
         check(bool((norms[[i for i in range(len(norms)) if i not in seen]] == 0).all()),
               f"lut {k}: rows of ids not seen moved")
     return state, ds
+
+
+def phase_precision_steps(state, ds, gen):
+    """One full-width step in bf16 (``state``'s modules), fp32 and fp32
+    with TF32 on, from the same weights, luts and batch (augmentation off),
+    against an fp64 step on the card; then each precision's step ms at
+    batch 16 (bf16 also with the modules in channels_last)."""
+    batch = 16
+    cnn = state.models["cnn"]
+    clips = normalize(torch.randint(0, 256, (batch, 8, *FRAME, 3), dtype=torch.uint8, device="cuda",
+                                    generator=gen))
+    targets = np.repeat(np.arange(batch // 2), 2)
+    step = make_train_step(device="cuda")
+
+    # one step of each precision from the same weights, luts and batch
+    # (augmentation off), held against an fp64 step on the card
+    num_classes = 8
+    bf16_modules = (cnn, state.models["siamese"], state.models["siamese_uncorr"])
+    fp32_modules = recast(bf16_modules, None)
+    small = clips[:4].cpu()
+    ids = np.array([0, 0, 5, 5])
+    luts = {k: torch.randn(num_classes, cnn.num_feat, device="cuda", generator=gen) for k in ("corr", "uncorr")}
+    luts = {k: (v / v.norm(dim=1, keepdim=True)).cpu() for k, v in luts.items()}
+    ref = one_train_step(fp32_modules, "cuda", torch.float64, small, ids, luts)
+    runs = {"bf16": one_train_step(bf16_modules, "cuda", torch.float32, small, ids, luts),
+            "fp32": one_train_step(fp32_modules, "cuda", torch.float32, small, ids, luts)}
+    with tf32(True):
+        runs["tf32"] = one_train_step(fp32_modules, "cuda", torch.float32, small, ids, luts)
+    vs_fp64 = {k: compare_steps(r, ref) for k, r in runs.items()}
+
+    # step ms at batch 16 per precision, in turns
+    def ms_of(modules, channels_last=False):
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        st = init_train_state(*[copy.deepcopy(m).to(memory_format=fmt) for m in modules], ds.num_train_pids,
+                              num_feat=cnn.num_feat, device="cuda")
+        step(st, clips, targets, TRAIN_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            step(st, clips, targets, TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        return {"ms": start.elapsed_time(end) / 5, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    step_ms = {"fp32": ms_of(fp32_modules)}
+    with tf32(True):
+        step_ms["fp32_tf32"] = ms_of(fp32_modules)
+    step_ms["bf16"] = ms_of(bf16_modules)
+    step_ms["bf16_channels_last"] = ms_of(bf16_modules, channels_last=True)
+    step_ms["fp32_again"] = ms_of(fp32_modules)
+    log("precision_steps", clips=4, frames=8, batch_for_ms=batch, vs_fp64=vs_fp64, step_ms=step_ms,
+        losses={k: r[0] for k, r in runs.items()})
+    for k, r in runs.items():
+        check(all(np.isfinite(v) for v in r[0].values()), f"{k} step metrics not finite")
+    return step_ms, vs_fp64
 
 
 def phase_train_eval(state, ds):
@@ -683,14 +931,19 @@ def read_launches():
 
 
 def run_cli(module, argv, device):
-    """``module.main`` on ``argv`` in this process; ``sys.stdout`` is
-    restored after it (the CLI's tee logger replaces it)."""
+    """``module.main`` on ``argv`` in this process, with both TF32 flags
+    turned on first: ``main`` must set its own precision policy (fp32, TF32
+    off), which ``recording`` reads inside it and this checks after it;
+    ``sys.stdout`` is restored after it (the CLI's tee logger replaces it)."""
     args = module.build_parser().parse_args([*argv, "--device", device])
     stdout = sys.stdout
+    all_precision_flags(True)
     try:
-        return module.main(args)
+        result = module.main(args)
     finally:
         sys.stdout = stdout
+    check_fp32_policy(f"{module.__name__}.main", precision_flags())
+    return result
 
 
 @contextlib.contextmanager
@@ -703,6 +956,7 @@ def recording():
     train, save, wait, evaluate = Trainer.train, AsyncCheckpointer.save, AsyncCheckpointer.wait, Evaluator.evaluate
 
     def rec_train(self, epoch, *a, **k):
+        check_fp32_policy("Trainer.train inside a CLI", precision_flags())
         state, stats = train(self, epoch, *a, **k)
         rec["epochs"].append({"epoch": epoch, **stats})
         rec["state"] = state
@@ -719,6 +973,7 @@ def recording():
             rec["writes"].append({"seconds": self.last_write_seconds, "bytes": self.last_bytes})
 
     def rec_evaluate(self, *a, **k):
+        check_fp32_policy("Evaluator.evaluate inside a CLI", precision_flags())
         res = evaluate(self, *a, **k)
         rec["evals"].append(res)
         return res
@@ -999,8 +1254,12 @@ def phase_rerank_staged(gen, device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, 
 
 def extract_main(argv, device):
     """``cli.extract.main`` on ``argv`` in this process (``--device`` goes
-    before the subcommand)."""
-    return cli_extract.main(cli_extract.build_parser().parse_args(["--device", device, *argv]))
+    before the subcommand), with both TF32 flags turned on first; the
+    policy ``main`` sets is checked after it."""
+    all_precision_flags(True)
+    result = cli_extract.main(cli_extract.build_parser().parse_args(["--device", device, *argv]))
+    check_fp32_policy(f"cli.extract {argv[0]}", precision_flags())
+    return result
 
 
 def median_ms(fn, reps=5):
@@ -1021,13 +1280,14 @@ def daemon(argv, device, sock):
 
     def target():
         try:
-            result["served"] = cli_extract.serve(cli_extract.build_parser().parse_args(
+            result["served"] = cli_extract.main(cli_extract.build_parser().parse_args(
                 ["--device", device, "serve", *argv, "--listen", f"unix:{sock}"]))
         except BaseException as e:  # noqa: BLE001 — re-raised in the main thread
             result["error"] = e
 
     if os.path.exists(sock):
         os.unlink(sock)
+    all_precision_flags(True)  # the daemon's main sets its own policy
     thread = threading.Thread(target=target, daemon=True)
     thread.start()
     deadline = time.time() + 600
@@ -1036,6 +1296,7 @@ def daemon(argv, device, sock):
             raise result["error"]
         check(thread.is_alive() and time.time() < deadline, "serve daemon did not start listening")
         time.sleep(0.05)
+    check_fp32_policy("serve", precision_flags())
     client = ServeClient.connect(f"unix:{sock}", timeout=600)
     try:
         yield client
@@ -1255,6 +1516,78 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
     return {"serve_padded": padded["launches"], "serve_staged": staged["launches"]}
 
 
+def phase_cli_bf16(gen, device="cuda", extra=(), geo=SERVE):
+    """``cli.train --bf16 --rerank 1`` for one epoch, ``cli.evaluate --bf16
+    --rerank 1`` on its checkpoint (launch counts zeroed before each and
+    read after; each re-ranking held against the plain min-sum), then
+    ``export-model --bf16`` at full width and one ``describe`` through a
+    daemon against the in-process bf16 descriptor."""
+    cuda = torch.device(device).type == "cuda"
+    logs = BUILD / "chip_cli_bf16"
+    shutil.rmtree(logs, ignore_errors=True)
+    train_argv = [*CLI_TRAIN[:-1], str(logs), "--bf16", "--epochs", "1", *extra]
+    out, launches, errs = {}, {}, {}
+    for what, module, argv in (
+            ("train", cli_train, train_argv),
+            ("evaluate", cli_evaluate, ["-d", "synthetic", "--synthetic-ids", str(SYNTH_IDS), "--seed", "0",
+                                        "--rerank", "1", "--bf16", "--logs-dir", str(logs),
+                                        "--checkpoint", str(logs / "checkpoint.npz"), *extra])):
+        zero_launches()
+        sync(device)
+        with recording() as rec:
+            t0 = time.perf_counter()
+            top1 = run_cli(module, argv, device)
+            sync(device)
+            out[f"{what}_seconds"] = time.perf_counter() - t0
+        launches[what] = read_launches()["minplus"]
+        res = rec["evals"][-1]
+        errs[what] = rerank_vs_plain(res)
+        out[f"{what}_top1"] = top1
+        check(res.qf.dtype == torch.float32 and bool(torch.isfinite(res.distmat).all()),
+              f"cli.{what} --bf16: descriptors {res.qf.dtype}, distmat finite")
+        if what == "train":
+            check(rec["state"].step >= 1 and np.isfinite(rec["epochs"][-1]["loss"]), "cli.train --bf16 did not train")
+            out["epoch_stats"] = rec["epochs"]
+    ckpt = logs / "checkpoint.npz"
+
+    # the bf16 artifact at full width, and a daemon's describe of it
+    model = logs / "model_bf16.npz"
+    (h, w), b = geo["frame"], geo["batch"]
+    t0 = time.perf_counter()
+    meta = extract_main(["export-model", "--checkpoint", str(ckpt), "--num-classes", str(SYNTH_IDS), "--bf16",
+                         "--batch", str(b), "--seq_len", str(geo["seq_len"]), "--height", str(h), "--width",
+                         str(w), "-o", str(model), *extra], device)
+    out["export_seconds"] = time.perf_counter() - t0
+    args = cli_train.build_parser().parse_args([*train_argv])
+    cnn, sia, unc = cli_train.build_models(args, tiny=args.tiny)
+    state = init_train_state(cnn, sia, unc, SYNTH_IDS, num_feat=cnn.num_feat, device=device)
+    load_train_state(state, str(ckpt))
+    rng = np.random.RandomState(1)
+    clips = rng.randint(0, 256, (b, geo["seq_len"], h, w, 3), np.uint8)
+    np.savez(logs / "clips.npz", clips=clips)
+    with torch.inference_mode():
+        want = make_descriptor_fn(cnn.eval(), sia.eval())(torch.from_numpy(clips).to(device)).cpu().numpy()
+    del state, cnn, sia, unc
+    sock = str(logs / "d.sock")
+    if len(sock) > 100:  # AF_UNIX paths are short
+        sock = os.path.relpath(sock)
+    with daemon(["--model", str(model)], device, sock) as c:
+        t0 = time.perf_counter()
+        got = c.describe(str(logs / "clips.npz"))["features"]
+        out["describe_seconds"] = time.perf_counter() - t0
+    desc_err = float(np.abs(got - want).max())
+    log("cli_bf16", launches=launches, rerank_vs_plain_max_abs_diff=errs, artifact_bytes=model.stat().st_size,
+        export_dim=meta["dim"], describe_vs_modules_max_abs=desc_err, checkpoint_bytes=ckpt.stat().st_size, **out)
+    if cuda:
+        for what, n in launches.items():
+            check(n > 0, f"cli.{what} --bf16 --rerank 1 did not launch the min-plus kernel")
+    for what, err in errs.items():
+        check(err <= KERNEL_TOL, f"cli.{what} --bf16 re-ranking, kernel vs plain min-sum: {err}")
+    check(got.dtype == np.float32 and desc_err <= 1e-4, f"bf16 daemon describe vs the modules: {desc_err}")
+    check(c.bye["ok"], "bf16 daemon shutdown")
+    return launches
+
+
 def phase_extract_cli(device="cuda", extra=()):
     """``cli.extract features`` for query and gallery on ``cli_train``'s
     checkpoint, then ``rank --rerank``, in this process; the ranking is
@@ -1306,8 +1639,7 @@ def main():
         print("chip_smoke: no CUDA device; the port's main path runs only on a card",
               file=sys.stderr)
         return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_precision()  # the CLIs' policy, for the phases that call the library directly
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     log("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -1327,12 +1659,23 @@ def main():
     launches = phase_slice(cnn, sia)
     del cnn, sia
     torch.cuda.empty_cache()
+    rates = phase_model_bf16(gen)
     phase_mars(gen)
     phase_train_check(gen)
     state, ds = phase_train(gen)
     train_launches = phase_train_eval(state, ds)
     del state
     torch.cuda.empty_cache()
+    state, ds = phase_train(gen, bf16=True)
+    step_ms, vs_fp64 = phase_precision_steps(state, ds, gen)
+    del state
+    torch.cuda.empty_cache()
+    log("tf32", descriptor_ms_per_32_clips={"off": rates["fp32_mb32"]["ms"], "on": rates["fp32_tf32_mb32"]["ms"],
+                                            "off_again": rates["fp32_again_mb32"]["ms"]},
+        step_ms_batch16={"off": step_ms["fp32"]["ms"], "on": step_ms["fp32_tf32"]["ms"],
+                         "off_again": step_ms["fp32_again"]["ms"]},
+        step_all_l2_from_fp64={k: v["all_l2"] for k, v in vs_fp64.items()}, policy_after=precision_flags())
+    check_fp32_policy("chip_smoke after the tf32 phase", precision_flags())
     final, cli_train_launches = phase_cli_train()
     phase_cli_resume(final)
     del final
@@ -1345,16 +1688,20 @@ def main():
     serve_launches = phase_serve(gen)
     torch.cuda.empty_cache()
     rank_cli_launches = phase_extract_cli()
+    torch.cuda.empty_cache()
+    bf16_launches = phase_cli_bf16(gen)
 
-    # launches on this slice's path (the serve daemon's padded re-ranking
-    # route); every other path's count beside it
-    entry["launches"] = serve_launches["serve_padded"]
+    # launches on this slice's path (``cli.evaluate --bf16 --rerank 1``);
+    # every other path's count beside it
+    entry["launches"] = bf16_launches["evaluate"]
     entry["launches_by_path"] = {"evaluate": launches["minplus"], "train": train_launches["minplus"],
                                  "cli_train": cli_train_launches["minplus"],
                                  "cli_evaluate": cli_eval_launches["minplus"],
                                  "cli_mars_evaluate": mars_launches["minplus"],
                                  "rerank_staged": staged_launches, **serve_launches,
-                                 "rank_cli": rank_cli_launches["minplus"]}
+                                 "rank_cli": rank_cli_launches["minplus"],
+                                 "cli_bf16_train": bf16_launches["train"],
+                                 "cli_bf16_evaluate": bf16_launches["evaluate"]}
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [entry]}))

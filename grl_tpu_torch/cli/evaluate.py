@@ -6,7 +6,9 @@ Loads a checkpoint (``--checkpoint``, default ``<logs-dir>/checkpoint_best.npz``
 one this package or grl_tpu wrote), dense-samples every tracklet, reports
 CMC/mAP, optionally after k-reciprocal re-ranking (``--rerank 1``, on the
 min-plus kernel on the card), and with ``--save-distmat`` writes the final
-distance matrix and ids in grl_tpu's npz keys. ``--visual`` and
+distance matrix and ids in grl_tpu's npz keys. It runs in fp32 with TF32
+off, or with ``--bf16`` in bfloat16 compute (the descriptor stays fp32,
+so re-ranking and the min-plus kernel take fp32). ``--visual`` and
 ``--visual-from`` render ranked strips, which waits for ROADMAP queue A,
 item 8; until then they exit with that message.
 """
@@ -16,7 +18,7 @@ from __future__ import annotations
 import argparse
 import os.path as osp
 
-from .. import resolve_device
+from .. import resolve_device, set_precision
 from ..config import PRESETS, ExperimentConfig
 from ..data import get_data
 from ..engine import Evaluator, init_train_state
@@ -25,6 +27,7 @@ from .train import DATASETS, _synthetic_kwargs, build_models, open_log, validate
 
 
 def main(args):
+    set_precision()
     validate_args(args)
     device = resolve_device(args.device)
     open_log(args.logs_dir, "test")
@@ -77,7 +80,7 @@ def build_parser():
     parser.add_argument("--data-dir", type=str, metavar="PATH", default="")
     parser.add_argument("--logs-dir", type=str, metavar="PATH", default="log/grl")
     parser.add_argument("--checkpoint", type=str, default="")
-    parser.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP queue A, item 6)")
+    parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     parser.add_argument("--tiny", action="store_true")
     parser.add_argument("--use-flow", action="store_true", help="not ported yet (ROADMAP queue A, item 8)")
     parser.add_argument("--devices", type=int, default=0,

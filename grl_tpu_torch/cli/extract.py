@@ -22,9 +22,11 @@ daemon speaks grl_tpu's JSON-lines protocol, so ``grl_tpu.client`` and
 ``torch.export`` program (uint8 clips -> descriptors, weights inside) for
 the device it runs on; ``describe`` and ``serve`` load it with no model
 code. Every re-ranked answer ends in the min-plus kernel on the card.
-Flags whose feature is not ported yet exit naming their ROADMAP item:
-``--bf16`` (queue A, item 6), ``--devices`` above 1 (item 7),
-``--use-flow`` (item 8).
+``main`` runs in fp32 with TF32 off; ``features --bf16`` and
+``export-model --bf16`` compute in bfloat16 (descriptors stay fp32), and a
+bf16 artifact is described and served as an fp32 one. Flags whose feature
+is not ported yet exit naming their ROADMAP item: ``--devices`` above 1
+(queue A, item 7), ``--use-flow`` (item 8).
 
 ``rank`` does NOT prepend queries to the gallery and does not junk-filter:
 it is retrieval, not CMC.
@@ -42,7 +44,7 @@ import os.path as osp
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, set_precision
 from ..config import ExperimentConfig
 from ..data import get_data
 from ..engine import Evaluator, init_train_state
@@ -61,8 +63,6 @@ _ZIP_MAGIC = b"PK\x03\x04"
 
 
 def _reject_unported(args):
-    if getattr(args, "bf16", False):
-        _not_ported("--bf16", 6, "bfloat16 compute")
     if getattr(args, "devices", 0) > 1:
         _not_ported("--devices above 1", 7, "work over several cards")
     if getattr(args, "use_flow", False):
@@ -1038,7 +1038,7 @@ def build_parser():
     f.add_argument("--arch1", type=str, default=cfg.model.arch1)
     f.add_argument("--arch2", type=str, default=cfg.model.arch2)
     f.add_argument("--features", type=int, default=cfg.model.features)
-    f.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP queue A, item 6)")
+    f.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     f.add_argument("--tiny", action="store_true")
     f.add_argument("--use-flow", action="store_true", help="not ported yet (ROADMAP queue A, item 8)")
     f.add_argument("--seed", type=int, default=cfg.seed)
@@ -1077,7 +1077,7 @@ def build_parser():
                    help="the export's device type; must match --device (default: it)")
     e.add_argument("--arch1", type=str, default=cfg.model.arch1)
     e.add_argument("--arch2", type=str, default=cfg.model.arch2)
-    e.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP queue A, item 6)")
+    e.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     e.add_argument("--tiny", action="store_true")
     e.add_argument("--use-flow", action="store_true", help="not ported yet (ROADMAP queue A, item 8)")
     e.add_argument("--seed", type=int, default=cfg.seed)
@@ -1139,6 +1139,7 @@ def build_parser():
 
 
 def main(args):
+    set_precision()
     if args.command == "rank":
         return rank(args)
     if args.command == "export-model":

@@ -6,9 +6,12 @@ The flags and their defaults are grl_tpu's, plus ``--device`` (default
 ``cuda``; ``cpu`` runs on the host). Checkpoints are written in grl_tpu's
 format (``utils/serialization.py``), so a run can resume from, or be
 evaluated by, either package. ``--dataset synthetic`` runs the whole stack
-with no data on disk. Flags whose feature is not ported yet exit with the
-ROADMAP item that brings it: ``--bf16`` (queue A, item 6), ``--devices``
-above 1 (item 7), ``--use-flow`` and ``--visual`` (item 8).
+with no data on disk. ``main`` runs in fp32 with TF32 off
+(``set_precision``); ``--bf16`` computes every conv and linear in bfloat16
+over fp32 parameters, as grl_tpu's does, and writes the same checkpoint
+as an fp32 run. Flags whose feature is not ported yet exit with the
+ROADMAP item that brings it: ``--devices`` above 1 (queue A, item 7),
+``--use-flow`` and ``--visual`` (item 8).
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ import sys
 import threading
 
 import numpy as np
+import torch
 
-from .. import models, resolve_device
+from .. import models, resolve_device, set_precision
 from ..config import ExperimentConfig
 from ..data import get_data
 from ..engine import Evaluator, Trainer, init_train_state, make_train_step, step_decay_lr
@@ -35,16 +39,19 @@ DATASETS = ["ilidsvidsequence", "prid2011sequence", "mars", "duke", "synthetic"]
 def build_models(args, tiny=False):
     """``(cnn, siamese, siamese_uncorr)`` on the CPU with fresh weights from
     ``args.seed``: the full ResNet-50 GRL model, or with ``tiny`` a trunk of
-    one bottleneck per stage at width 4 (smoke tests), as grl_tpu builds."""
+    one bottleneck per stage at width 4 (smoke tests), as grl_tpu builds.
+    ``args.bf16`` gives every module ``compute_dtype=torch.bfloat16``."""
+    cd = torch.bfloat16 if getattr(args, "bf16", False) else None
     if tiny:
-        trunk = models.ResNetTrunk(layers=(1, 1, 1, 1), width=4)
+        trunk = models.ResNetTrunk(layers=(1, 1, 1, 1), width=4, compute_dtype=cd)
     else:
-        trunk = models.resnet50_trunk(last_stride=1)
+        trunk = models.resnet50_trunk(last_stride=1, compute_dtype=cd)
     seed = 3 * args.seed
-    cnn = models.create("resnet50_grl", device="cpu", seed=seed, trunk=trunk)
+    cnn = models.create("resnet50_grl", device="cpu", seed=seed, trunk=trunk, compute_dtype=cd)
     siamese = models.create(args.arch2, device="cpu", seed=seed + 1, input_num=cnn.num_feat,
-                            output_num=512, class_num=2)
-    siamese_uncorr = models.create("siamese_video", device="cpu", seed=seed + 2, input_num=cnn.num_feat)
+                            output_num=512, class_num=2, compute_dtype=cd)
+    siamese_uncorr = models.create("siamese_video", device="cpu", seed=seed + 2, input_num=cnn.num_feat,
+                                   compute_dtype=cd)
     return cnn, siamese, siamese_uncorr
 
 
@@ -78,8 +85,6 @@ def validate_args(args):
     if method not in ("rrs", "random"):
         raise SystemExit(f"--sample_method {method!r} unknown: 'rrs' (restricted random sampling) "
                          "or 'random' (consecutive window)")
-    if getattr(args, "bf16", False):
-        _not_ported("--bf16", 6, "bfloat16 compute")
     if getattr(args, "devices", 0) > 1:
         _not_ported("--devices above 1", 7, "data parallelism over several cards")
     if getattr(args, "use_flow", False):
@@ -112,6 +117,7 @@ def open_log(logs_dir, tag):
 
 
 def main(args):
+    set_precision()
     validate_args(args)
     device = resolve_device(args.device)
     np.random.seed(args.seed)
@@ -243,7 +249,7 @@ def build_parser():
     parser.add_argument("--rerank", type=int, default=0)
     parser.add_argument("--data-dir", type=str, metavar="PATH", default="")
     parser.add_argument("--logs-dir", type=str, metavar="PATH", default=osp.join(os.getcwd(), "log/grl"))
-    parser.add_argument("--bf16", action="store_true", help="not ported yet (ROADMAP queue A, item 6)")
+    parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     parser.add_argument("--tiny", action="store_true", help="tiny trunk (smoke tests)")
     parser.add_argument("--resume", type=str, default="", help="checkpoint to resume from (either package's)")
     parser.add_argument("--pretrained-trunk", type=str, default="",

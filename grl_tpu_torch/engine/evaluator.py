@@ -46,12 +46,14 @@ def _euclidean(a, b):
 def make_descriptor_fn(cnn, siamese):
     """The 6144-d descriptor recipe: normalize -> CNN -> attention-pooled
     corr -> concat[x_uncorr, pooled, mean-over-t corr]. ``describe`` takes
-    uint8 clips (b, t, h, w, 3) on the models' device."""
+    uint8 clips (b, t, h, w, 3) on the models' device. The descriptor is
+    fp32 under any compute dtype: the pooled segment is an fp32 product, and
+    the bf16 segments are promoted to it, as grl_tpu's concatenate does."""
 
     def describe(clips_u8):
         x_uncorr, x_corr = cnn(normalize(clips_u8))
         pooled = siamese.self_attention(x_corr)
-        return torch.cat([x_uncorr, pooled, x_corr.mean(dim=1)], dim=1)
+        return torch.cat([x_uncorr.to(pooled.dtype), pooled, x_corr.mean(dim=1).to(pooled.dtype)], dim=1)
 
     return describe
 

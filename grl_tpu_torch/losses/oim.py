@@ -19,8 +19,9 @@ def init_lut(num_classes, num_features, device=None, dtype=torch.float32):
 
 
 def oim_logits(inputs, lut, scalar=30.0):
-    """Scaled class logits; gradient flows to ``inputs`` only."""
-    return scalar * (inputs @ lut.detach().T)
+    """Scaled class logits in the lut's dtype (fp32; bf16 features are
+    promoted, as grl_tpu's product does); gradient flows to ``inputs`` only."""
+    return scalar * (inputs.to(torch.promote_types(inputs.dtype, lut.dtype)) @ lut.detach().T)
 
 
 def max_repeats(targets):

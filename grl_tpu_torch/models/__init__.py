@@ -23,7 +23,8 @@ def names():
 
 def create(name, device=None, seed=0, **kwargs):
     """Build a registered model on ``device`` (default ``"cuda"``) with fresh
-    weights drawn from a ``torch.Generator`` seeded with ``seed``."""
+    weights drawn from a ``torch.Generator`` seeded with ``seed``; the
+    keyword arguments, ``compute_dtype`` among them, go to the model."""
     if name not in _factory:
         raise KeyError(f"Unknown model: {name}; available: {names()}")
     device = resolve_device(device)

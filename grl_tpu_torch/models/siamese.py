@@ -17,6 +17,12 @@ Batch layout: pairs are adjacent (even index = probe, odd = gallery), as
 the pair sampler yields them. Every child of the JAX modules is kept
 (``featV``/``featV_bn`` are never applied) so a grl_tpu tree loads
 strictly.
+
+Under a ``compute_dtype`` the linears compute in that dtype; the attention
+weights and the pooled sum are fp32 products of the (bf16) operands, as
+grl_tpu's ``preferred_element_type=jnp.float32`` einsums, so ``Siamese``
+pools into fp32 and its classifier takes fp32 differences, while
+``SiameseVideo``'s take the compute dtype.
 """
 
 from __future__ import annotations
@@ -24,10 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-
-def l2_unit(x, dim):
-    """x / ‖x‖ with no epsilon."""
-    return x / x.square().sum(dim=dim, keepdim=True).sqrt()
+from ..nn import Linear, l2_unit
 
 
 def pairwise_verification(classifier_bn, classifier_linear, probe, gallery):
@@ -39,36 +42,40 @@ def pairwise_verification(classifier_bn, classifier_linear, probe, gallery):
     return classifier_linear(classifier_bn(diff)).view(np_, ng, -1)
 
 
-def _linear(cin, cout, rule):
-    lin = nn.Linear(cin, cout)
+def _linear(cin, cout, rule, compute_dtype):
+    lin = Linear(cin, cout, compute_dtype=compute_dtype)
     lin.init_rule = rule
     return lin
 
 
 class Siamese(nn.Module):
-    def __init__(self, input_num=2048, output_num=512, class_num=2):
+    def __init__(self, input_num=2048, output_num=512, class_num=2, compute_dtype=None):
         super().__init__()
+        cd = compute_dtype
         self.input_num = input_num
         self.output_num = output_num
-        self.featQ = _linear(input_num, output_num, "kaiming_fan_out")
+        self.featQ = _linear(input_num, output_num, "kaiming_fan_out", cd)
         self.featQ_bn = nn.BatchNorm1d(output_num)
-        self.featK = _linear(input_num, output_num, "kaiming_fan_out")
+        self.featK = _linear(input_num, output_num, "kaiming_fan_out", cd)
         self.featK_bn = nn.BatchNorm1d(output_num)
         # featV is never applied (the raw frames are the values); kept for
         # checkpoint-shape compatibility
-        self.featV = _linear(input_num, output_num, "kaiming_fan_out")
+        self.featV = _linear(input_num, output_num, "kaiming_fan_out", cd)
         self.featV_bn = nn.BatchNorm1d(output_num)
         self.classifierBN = nn.BatchNorm1d(input_num)
-        self.classifierlinear = _linear(input_num, class_num, "classifier")
+        self.classifierlinear = _linear(input_num, class_num, "classifier", cd)
 
     def self_attention(self, x):
-        """Attention-pool (b, t, C) -> (b, C)."""
+        """Attention-pool (b, t, C) -> (b, C), in fp32 (or wider)."""
         b, t, c = x.shape
         flat = x.reshape(b * t, c)
         q = l2_unit(self.featQ_bn(self.featQ(flat)), dim=1).view(b, t, -1)
         k = l2_unit(self.featK_bn(self.featK(flat)), dim=1).view(b, t, -1)
-        weights = torch.softmax(q @ k.transpose(1, 2), dim=-1)
-        pooled = (weights @ x).sum(dim=1)
+        # fp32 products of the compute-dtype operands (a bf16 x bf16
+        # product is exact in fp32)
+        wide = torch.promote_types(x.dtype, torch.float32)
+        weights = torch.softmax(q.to(wide) @ k.to(wide).transpose(1, 2), dim=-1)
+        pooled = (weights @ x.to(wide)).sum(dim=1)
         return l2_unit(pooled, dim=1)
 
     def forward(self, x):
@@ -89,10 +96,10 @@ class Siamese(nn.Module):
 class SiameseVideo(nn.Module):
     """Verification head for the (b, C) uncorrelated stream."""
 
-    def __init__(self, input_num=2048, output_num=2048, class_num=2):
+    def __init__(self, input_num=2048, output_num=2048, class_num=2, compute_dtype=None):
         super().__init__()
         self.classifierBN = nn.BatchNorm1d(input_num)
-        self.classifierlinear = _linear(input_num, class_num, "classifier")
+        self.classifierlinear = _linear(input_num, class_num, "classifier", compute_dtype)
 
     def forward(self, x):
         """x: (b, C) interleaved pairs -> (scores (b/2, b/2, 2), (b, C) probes then galleries)."""

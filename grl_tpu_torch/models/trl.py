@@ -20,6 +20,10 @@ The recurrence is a Python loop over t. Two exact rewrites lift work out of
 it: ``f2 = relu(conv(frame))`` does not depend on the memory, so it runs
 once over all frames, and ``mean_hw(x·(1+atte)) = mean_hw(x)·(1+atte)``,
 so the enhanced map is never formed.
+
+Under a ``compute_dtype`` every conv and linear computes in that dtype, so
+the memory carry, the step features and the squared differences are bf16,
+as in grl_tpu's scan.
 """
 
 from __future__ import annotations
@@ -28,18 +32,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn import Conv2d, Linear, Sigmoid
+
 
 class MemoryBlock(nn.Module):
     """1x1-conv residual block advancing the uncorrelated memory:
     C -> C/4 -> C/4 -> C with BN/ReLU and a residual from the input."""
 
-    def __init__(self, channels=2048, bottleneck=512):
+    def __init__(self, channels=2048, bottleneck=512, compute_dtype=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(channels, bottleneck, 1, bias=False)
+        cd = compute_dtype
+        self.conv1 = Conv2d(channels, bottleneck, 1, bias=False, compute_dtype=cd)
         self.bn1 = nn.BatchNorm2d(bottleneck)
-        self.conv2 = nn.Conv2d(bottleneck, bottleneck, 1, bias=False)
+        self.conv2 = Conv2d(bottleneck, bottleneck, 1, bias=False, compute_dtype=cd)
         self.bn2 = nn.BatchNorm2d(bottleneck)
-        self.conv3 = nn.Conv2d(bottleneck, channels, 1, bias=False)
+        self.conv3 = Conv2d(bottleneck, channels, 1, bias=False, compute_dtype=cd)
         self.bn3 = nn.BatchNorm2d(channels)
 
     def forward(self, x):
@@ -52,17 +59,18 @@ class MemoryBlock(nn.Module):
 class _Direction(nn.Module):
     """One temporal direction: projections + SE attention + memory block."""
 
-    def __init__(self, channels=2048, se_ratio=16):
+    def __init__(self, channels=2048, se_ratio=16, compute_dtype=None):
         super().__init__()
-        self.f1 = nn.Conv2d(channels, channels, 1, bias=True)
-        self.f2 = nn.Conv2d(channels, channels, 1, bias=True)
+        cd = compute_dtype
+        self.f1 = Conv2d(channels, channels, 1, bias=True, compute_dtype=cd)
+        self.f2 = Conv2d(channels, channels, 1, bias=True, compute_dtype=cd)
         self.atte = nn.Sequential(
-            nn.Linear(channels, channels // se_ratio, bias=False),
+            Linear(channels, channels // se_ratio, bias=False, compute_dtype=cd),
             nn.ReLU(),
-            nn.Linear(channels // se_ratio, channels, bias=False),
-            nn.Sigmoid(),
+            Linear(channels // se_ratio, channels, bias=False, compute_dtype=cd),
+            Sigmoid(),
         )
-        self.memo = MemoryBlock(channels, channels // 4)
+        self.memo = MemoryBlock(channels, channels // 4, compute_dtype=cd)
 
     def forward(self, x_corr, x_uncorr, reverse=False):
         """x_corr / x_uncorr: (b, t, C, h, w). ``reverse=True`` runs the
@@ -90,10 +98,10 @@ class TRLBlock(nn.Module):
     Returns ``(f_uncorr (b, C), f_corr (b, t, C))``.
     """
 
-    def __init__(self, channels=2048):
+    def __init__(self, channels=2048, compute_dtype=None):
         super().__init__()
-        self.fwd = _Direction(channels)
-        self.bwd = _Direction(channels)
+        self.fwd = _Direction(channels, compute_dtype=compute_dtype)
+        self.bwd = _Direction(channels, compute_dtype=compute_dtype)
 
     def forward(self, x):
         x_uncorr, x_corr = x

@@ -151,10 +151,10 @@ def test_validate_args_rejects_what_grl_tpu_rejects(extra):
 
 
 @pytest.mark.parametrize("module,extra,item", [
-    (t_train, ["--bf16"], 6), (t_train, ["--devices", "2"], 7),
+    (t_train, ["--devices", "2"], 7),
     (t_train, ["-d", "ilidsvidsequence", "--use-flow"], 8), (t_train, ["--visual", "1"], 8),
-    (t_eval, ["--visual-from", "dist.npz"], 8), (t_eval, ["--bf16"], 6),
-], ids=["bf16", "devices", "use-flow", "visual", "visual-from", "eval-bf16"])
+    (t_eval, ["--visual-from", "dist.npz"], 8),
+], ids=["devices", "use-flow", "visual", "visual-from"])
 def test_unported_flags_exit_naming_their_roadmap_item(module, extra, item):
     args = module.build_parser().parse_args(["--tiny"] + extra)
     with pytest.raises(SystemExit, match=f"queue A, item {item}"):

@@ -376,9 +376,8 @@ def test_flags_are_grl_tpu_s_plus_device():
 
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--model", "m.npz", "--devices", "2"], 7),
-    (["features", "-o", "f.npz", "--bf16"], 6),
     (["export-model", "-o", "m.npz", "--use-flow"], 8),
-], ids=["serve-devices", "features-bf16", "export-use-flow"])
+], ids=["serve-devices", "export-use-flow"])
 def test_unported_flags_exit_naming_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=f"queue A, item {item}"):
         port_main(*argv)
