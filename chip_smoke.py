@@ -95,7 +95,25 @@ descriptor), with seeded random weights. Phases:
     ``cli.evaluate --bf16 --rerank 1`` on its checkpoint (the min-plus
     kernel launched, the re-ranking equal to the plain min-sum's), then
     ``export-model --bf16`` at full width and a daemon's ``describe``
-    against the in-process bf16 descriptor, with the artifact's bytes.
+    against the in-process bf16 descriptor, with the artifact's bytes;
+20. ``flow`` (after ``cli_mars``), the optical-flow configuration: an
+    iLIDS-VID layout with flow companions under ``build/chip_flow/`` (24
+    ids x 2 cameras x 24 frames, 128x64 JPEGs, resized to 256x128);
+    ``flow_cli``: ``cli.train --use-flow -b 16 --seq_len 8 --epochs 1
+    --rerank 1`` at full width (a 6-channel trunk; the warm step of its
+    state at 256x128x6, the flow loader's clips and JPEGs per second),
+    ``cli.evaluate --use-flow --rerank 1 --visual 1 --save-distmat``
+    inside ``utils.profiling.trace`` (the kernel launched and named in the
+    Chrome trace, the re-ranking equal to the plain min-sum's, one strip
+    directory per query), then ``--visual-from`` on the npz (the same
+    rank-1, mAP and strips, no launch); ``flow_serve``: ``features
+    --use-flow`` and ``rank --rerank`` (one launch), ``export-model
+    --use-flow`` at batch 32 x 8 x 256x128 x 6, a daemon's ``describe``
+    of 32 flow clips against the modules, a 3-channel clip refused;
+    ``flow_models``: the 6-channel ``resnet50_grl`` descriptor,
+    ``ResNetBaseline`` and ``TwoStreamBaseline`` card against CPU on 2
+    clips with their warm ms per 32 clips, and ``visualize_attention``'s
+    masks card against CPU.
 
 The kernel is also timed at the serve route's shape (32 x 11598 x 11598)
 and at one slab of the staged builder (1980 x 8192 x 19960).
@@ -139,7 +157,7 @@ from grl_tpu_torch.cli import evaluate as cli_evaluate
 from grl_tpu_torch.cli import extract as cli_extract
 from grl_tpu_torch.cli import train as cli_train
 from grl_tpu_torch.client import ServeClient, ServeError
-from grl_tpu_torch.data import ClipDataset, ClipLoader, RandomPairSampler, SyntheticVideoReID, normalize
+from grl_tpu_torch.data import ClipDataset, ClipLoader, RandomPairSampler, SyntheticVideoReID, get_data, normalize
 from grl_tpu_torch.data import jpeg
 from grl_tpu_torch.data.sampling import dense_indices
 from grl_tpu_torch.engine import (Evaluator, Trainer, grl_loss_fn, init_train_state,
@@ -212,6 +230,11 @@ SYNTH_IDS = 32  # train ids of the CLI phases' synthetic catalog (= the checkpoi
 CLI_TRAIN = ["-d", "synthetic", "--synthetic-ids", str(SYNTH_IDS), "-b", "16", "--rerank", "1",
              "--logs-dir", str(CLI_DIR)]
 SERVE_DIR = BUILD / "chip_serve"
+# the flow phase: an iLIDS-VID layout with flow companions, 24 ids x 2
+# cameras x 24 frames of 128x64 JPEGs, which the loader resizes to 256x128
+FLOW_DIR, FLOW_RUN = BUILD / "chip_flow", BUILD / "chip_flow_run"
+FLOW_IDS, FLOW_FRAMES = 24, 24
+FLOW_FRAME = (256, 128)
 # parameters no loss term reaches: they move by weight decay alone
 UNREACHED = ("siamese.featV.", "siamese.featV_bn.", "siamese_uncorr.classifierlinear.",
              "siamese_uncorr.classifierBN.")
@@ -951,9 +974,11 @@ def recording():
     """What a CLI run did, read from the classes it drives: each epoch's
     trainer stats and the state it ended with, the main thread's seconds in
     each ``AsyncCheckpointer.save``, each finished write (seconds, bytes),
-    and each ``Evaluator.evaluate`` result."""
-    rec = {"epochs": [], "saves": [], "writes": [], "evals": [], "state": None}
+    each ``Evaluator.evaluate`` result and each host protocol's
+    ``(cmc, mAP)`` (``metrics.evaluate``, which ``--visual-from`` runs)."""
+    rec = {"epochs": [], "saves": [], "writes": [], "evals": [], "protocols": [], "state": None}
     train, save, wait, evaluate = Trainer.train, AsyncCheckpointer.save, AsyncCheckpointer.wait, Evaluator.evaluate
+    host_protocol = metrics.evaluate
 
     def rec_train(self, epoch, *a, **k):
         check_fp32_policy("Trainer.train inside a CLI", precision_flags())
@@ -978,13 +1003,20 @@ def recording():
         rec["evals"].append(res)
         return res
 
+    def rec_protocol(*a, **k):
+        out = host_protocol(*a, **k)
+        rec["protocols"].append(out)
+        return out
+
     Trainer.train, AsyncCheckpointer.save, AsyncCheckpointer.wait, Evaluator.evaluate = (
         rec_train, rec_save, rec_wait, rec_evaluate)
+    metrics.evaluate = rec_protocol
     try:
         yield rec
     finally:
         Trainer.train, AsyncCheckpointer.save, AsyncCheckpointer.wait, Evaluator.evaluate = (
             train, save, wait, evaluate)
+        metrics.evaluate = host_protocol
 
 
 def rerank_vs_plain(res):
@@ -995,14 +1027,14 @@ def rerank_vs_plain(res):
     return float((plain - res.distmat).abs().max())
 
 
-def step_probe(state, device, batch=16, frame=(64, 32)):
+def step_probe(state, device, batch=16, frame=(64, 32), channels=3):
     """A copy of ``state`` steps at the CLI run's batch and frames: CUDA-event
     ms per step over 5 steps queued back to back (after one warm-up), and
     the kernel time of 2 more under ``torch.profiler``; the card is idle for
     the rest of a step."""
     probe = copy.deepcopy(state)
     step = make_train_step(device=device)
-    clips = normalize(torch.randint(0, 256, (batch, 8, *frame, 3), dtype=torch.uint8, device=device))
+    clips = normalize(torch.randint(0, 256, (batch, 8, *frame, channels), dtype=torch.uint8, device=device))
     targets = np.repeat(np.arange(batch // 2), 2)
     step(probe, clips, targets, TRAIN_LR)
     torch.cuda.synchronize()
@@ -1190,6 +1222,282 @@ def phase_cli_mars(device="cuda", extra=(), frame=FRAME):
     check(bool(torch.isfinite(res.distmat).all()), "MARS distmat not finite")
     check(err <= KERNEL_TOL, f"cli.evaluate -d mars re-ranking, kernel vs plain min-sum: {err}")
     return launches
+
+
+def write_flow_layout(root, num_ids=FLOW_IDS, frames=FLOW_FRAMES, height=128, width=64, seed=0):
+    """An iLIDS-VID layout with flow companions (``images/`` and ``others/``
+    of the same names, JPEGs written with PIL), ``meta.json`` and
+    ``splits.json``: the first half of the ids train, the rest are query
+    (camera 0) and gallery (camera 1). Frames come from the synthetic
+    catalog's per-id templates; each flow frame is its frame's horizontal
+    difference, offset to mid-grey."""
+    from PIL import Image
+
+    from grl_tpu_torch.data.catalogs.synthetic import _template
+
+    rng = np.random.RandomState(seed)
+    for sub in ("images", "others"):
+        (root / sub).mkdir(parents=True)
+    identities = []
+    for pid in range(num_ids):
+        template, cams = _template(rng, height, width), []
+        for cam in range(2):
+            names = []
+            for i in range(frames):
+                img = np.clip((template * (0.9 + 0.2 * cam) + 0.08 * rng.randn(height, width, 3)) * 255, 0, 255)
+                flow = np.clip(128 + 2 * (np.roll(img, 1, axis=1) - img), 0, 255)
+                name = f"{pid:08d}_{cam:02d}_{i:04d}.jpg"
+                Image.fromarray(img.astype(np.uint8)).save(root / "images" / name)
+                Image.fromarray(flow.astype(np.uint8)).save(root / "others" / name)
+                names.append(name)
+            cams.append(names)
+        identities.append(cams)
+    (root / "meta.json").write_text(json.dumps({"identities": identities}))
+    half = num_ids // 2
+    test = list(range(half, num_ids))
+    (root / "splits.json").write_text(json.dumps([{"trainval": list(range(half)), "query": test,
+                                                    "gallery": test}]))
+    return 2 * num_ids * 2 * frames
+
+
+def tree_pixels(root):
+    """{relative path: pixel bytes} of every PNG under ``root``."""
+    from PIL import Image
+
+    return {str(p.relative_to(root)): Image.open(p).tobytes() for p in sorted(root.rglob("*.png"))}
+
+
+def phase_flow_cli(device="cuda", extra=(), frame=(128, 64)):
+    """The ``--use-flow`` CLIs over an iLIDS-VID layout with flow companions:
+    ``cli.train`` for one epoch with the re-ranked evaluation, ``cli.evaluate
+    --rerank 1 --visual 1 --save-distmat`` inside ``utils.profiling.trace``,
+    and ``--visual-from`` on the saved npz; launch counts zeroed before
+    each CLI and read after. Returns the launches and the checkpoint."""
+    from grl_tpu_torch.engine import eval_items
+    from grl_tpu_torch.utils.profiling import trace
+
+    cuda = torch.device(device).type == "cuda"
+    for d in (FLOW_DIR, FLOW_RUN):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    jpegs = write_flow_layout(FLOW_DIR, height=frame[0], width=frame[1])
+    write_s = time.perf_counter() - t0
+    common = ["-d", "ilidsvidsequence", "--data-dir", str(FLOW_DIR), "--use-flow", "--seq_len", "8",
+              "--logs-dir", str(FLOW_RUN), *extra]
+    out, launches = {}, {}
+
+    zero_launches()
+    sync(device)
+    with recording() as rec:
+        t0 = time.perf_counter()
+        out["train_top1"] = run_cli(cli_train, [*common, "-b", "16", "--epochs", "1", "--rerank", "1"], device)
+        sync(device)
+        out["train_seconds"] = time.perf_counter() - t0
+    launches["train"] = read_launches()["minplus"]
+    state, epoch = rec["state"], rec["epochs"][-1]
+    out["train_steps"] = state.step
+    train_err = rerank_vs_plain(rec["evals"][-1])
+    check(state.step >= 1 and np.isfinite(epoch["loss"]), "cli.train --use-flow did not train")
+    check(state.models["cnn"].backbone.base.conv1.in_channels == 6, "cli.train --use-flow: conv1 is not 6-channel")
+    probe = step_probe(state, device, frame=FLOW_FRAME, channels=6) if cuda else None
+    del state, rec
+
+    # the flow loader alone: clips decoded per second (2 JPEGs per frame)
+    args = cli_train.build_parser().parse_args([*common, "-b", "16"])
+    _, _, loader, _, _ = get_data("ilidsvidsequence", str(FLOW_DIR), 16, 8, args.seq_srd, args.workers,
+                                  use_flow=True)
+    t0 = time.perf_counter()
+    decoded = sum(clips.shape[0] for clips, _, _ in loader)
+    decode_s = time.perf_counter() - t0
+
+    ckpt = FLOW_RUN / "checkpoint.npz"
+    dist = FLOW_RUN / "distmat.npz"
+    trace_dir = FLOW_RUN / "trace"
+    zero_launches()
+    sync(device)
+    with recording() as rec, trace(str(trace_dir)):
+        t0 = time.perf_counter()
+        top1 = run_cli(cli_evaluate, [*common, "--rerank", "1", "--visual", "1", "--checkpoint", str(ckpt),
+                                      "--save-distmat", str(dist)], device)
+        sync(device)
+        out["evaluate_seconds"] = time.perf_counter() - t0
+    launches["evaluate"] = read_launches()["minplus"]
+    res = rec["evals"][-1]
+    eval_err = rerank_vs_plain(res)
+    trace_file = trace_dir / "trace.json"
+    kernels_traced = {e.get("name", "")[:60] for e in json.load(open(trace_file))["traceEvents"]
+                      if "minplus_kernel" in e.get("name", "")}
+    visual = FLOW_RUN / "visual"
+    live_strips = tree_pixels(visual)
+    query_dirs = sorted(p.name for p in visual.iterdir())
+    q_items, _ = eval_items(*get_data("ilidsvidsequence", str(FLOW_DIR), 2, 8, args.seq_srd, 1, only_eval=True,
+                                      use_flow=True)[3:])
+
+    shutil.rmtree(visual)
+    zero_launches()
+    with recording() as rec:
+        t0 = time.perf_counter()
+        top1_from = run_cli(cli_evaluate, [*common, "--visual-from", str(dist)], device)
+        out["visual_from_seconds"] = time.perf_counter() - t0
+    launches["visual_from"] = read_launches()["minplus"]
+    cmc_from, map_from = rec["protocols"][-1]
+    again_strips = tree_pixels(visual)
+
+    log("flow_cli", jpegs=jpegs, frame=list(frame), write_seconds=write_s, launches=launches,
+        epoch_stats=epoch, step_probe=probe,
+        loader_clips=decoded, loader_seconds=decode_s, loader_clips_per_s=decoded / decode_s,
+        loader_jpegs_per_s=decoded * 8 * 2 / decode_s, top1=top1, mAP=res.mAP, top1_visual_from=top1_from,
+        mAP_visual_from=map_from, query=int(res.qf.shape[0]), gallery=int(res.gf.shape[0]),
+        descriptor_dim=int(res.qf.shape[1]), rerank_vs_plain_max_abs_diff={"train": train_err, "evaluate": eval_err},
+        trace_bytes=trace_file.stat().st_size, trace_minplus_names=sorted(kernels_traced),
+        strips=len(live_strips), query_dirs=len(query_dirs), **out)
+    if cuda:
+        check(launches["train"] > 0, "cli.train --use-flow --rerank 1 did not launch the min-plus kernel")
+        check(launches["evaluate"] > 0, "cli.evaluate --use-flow --rerank 1 did not launch the min-plus kernel")
+        check(bool(kernels_traced), "the trace of cli.evaluate --use-flow names no min-plus kernel")
+    check(launches["visual_from"] == 0, "--visual-from launched a kernel")
+    for what, err in (("train", train_err), ("evaluate", eval_err)):
+        check(err <= KERNEL_TOL, f"cli.{what} --use-flow re-ranking, kernel vs plain min-sum: {err}")
+    check(int(res.qf.shape[1]) == 3 * (2048 if "--tiny" not in extra else 128), "flow descriptor width")
+    check(bool(torch.isfinite(res.distmat).all()) and 0.0 <= res.mAP <= 1.0, "flow evaluation out of range")
+    check(len(query_dirs) == len(q_items) and all(
+        (visual / d / "query.png").exists() and len(list((visual / d).glob("rank*.png"))) == 10 for d in query_dirs),
+        f"--visual wrote {len(query_dirs)} query directories for {len(q_items)} queries")
+    check(top1_from == top1 and abs(map_from - res.mAP) <= 1e-9 and np.array_equal(cmc_from, res.cmc),
+          f"--visual-from rank-1 {top1_from} / mAP {map_from} vs the live run's {top1} / {res.mAP}")
+    check(again_strips == live_strips, "--visual-from strips differ from the live run's")
+    return launches, ckpt
+
+
+def phase_flow_serve(ckpt, gen, device="cuda", extra=(), geo=SERVE):
+    """``features --use-flow`` on query and gallery, ``rank --rerank`` (one
+    launch, held against the plain min-sum), ``export-model --use-flow`` at
+    the serve geometry with 6 channels, and one daemon ``describe`` of a
+    batch of flow clips held against the in-process descriptor; a 3-channel
+    clip sent to that daemon is refused."""
+    common = ["-d", "ilidsvidsequence", "--data-dir", str(FLOW_DIR), "--use-flow", "--seq_len", "8",
+              "--checkpoint", str(ckpt), *extra]
+    path = {split: str(FLOW_RUN / f"features_{split}.npz") for split in ("query", "gallery")}
+    t0 = time.perf_counter()
+    for split in path:
+        extract_main(["features", *common, "--split", split, "-o", path[split]], device)
+    features_s = time.perf_counter() - t0
+    zero_launches()
+    sync(device)
+    results = extract_main(["rank", "--query", path["query"], "--gallery", path["gallery"], "--topk", "10",
+                            "--rerank", "-o", str(FLOW_RUN / "ranks.json")], device)
+    sync(device)
+    rank_launches = read_launches()["minplus"]
+    qf, gf = (torch.from_numpy(np.load(path[s])["features"]).to(device) for s in ("query", "gallery"))
+    with torch.inference_mode():
+        plain = re_ranking(cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf),
+                           min_sum_fn=ops.minplus_plain).cpu().numpy()
+    idx, scores = answer({"results": results})
+    agree = topk_agreement(idx, scores, plain)
+
+    model = FLOW_RUN / "model_flow.npz"
+    (h, w), b = geo["frame"], geo["batch"]
+    classes = json.loads((FLOW_DIR / "splits.json").read_text())[0]["trainval"]
+    t0 = time.perf_counter()
+    meta = extract_main(["export-model", "--checkpoint", str(ckpt), "--num-classes", str(len(classes)), "--use-flow",
+                         "--batch", str(b), "--seq_len", str(geo["seq_len"]), "--height", str(h), "--width", str(w),
+                         "-o", str(model), *extra], device)
+    export_s = time.perf_counter() - t0
+    args = cli_train.build_parser().parse_args(["-d", "ilidsvidsequence", "--use-flow", *extra])
+    cnn, sia, unc = cli_train.build_models(args, tiny=args.tiny)
+    state = init_train_state(cnn, sia, unc, len(classes), num_feat=cnn.num_feat, device=device)
+    load_train_state(state, str(ckpt))
+    clips = np.random.RandomState(2).randint(0, 256, (b, geo["seq_len"], h, w, 6), np.uint8)
+    np.savez(FLOW_RUN / "clips.npz", clips=clips)
+    with torch.inference_mode():
+        want = make_descriptor_fn(cnn.eval(), sia.eval())(torch.from_numpy(clips).to(device)).cpu().numpy()
+    del state, cnn, sia, unc
+    sock = str(FLOW_RUN / "d.sock")
+    if len(sock) > 100:  # AF_UNIX paths are short
+        sock = os.path.relpath(sock)
+    with daemon(["--model", str(model)], device, sock) as c:
+        ping = c.ping()
+        t0 = time.perf_counter()
+        got = c.describe(str(FLOW_RUN / "clips.npz"))["features"]
+        describe_s = time.perf_counter() - t0
+        try:
+            c.describe(clips[:1, ..., :3])
+            refused = None
+        except ServeError as e:
+            refused = str(e)
+    desc_err = float(np.abs(got - want).max())
+    log("flow_serve", queries=int(qf.shape[0]), gallery=int(gf.shape[0]), features_s=features_s,
+        rank_launches=rank_launches, vs_plain_min_sum=agree, export_seconds=export_s, meta=meta,
+        artifact_bytes=model.stat().st_size, describe_clips=b, describe_seconds=describe_s,
+        describe_vs_modules_max_abs=desc_err, three_channel_refusal=refused)
+    if torch.device(device).type == "cuda":
+        check(rank_launches == 1, f"rank --rerank on flow features launched the kernel {rank_launches} times")
+    check(len(results) == qf.shape[0] and np.isfinite(scores).all(), "flow rank --rerank results")
+    check(agree["max_abs_diff"] <= KERNEL_TOL, f"flow rank --rerank vs plain min-sum: {agree}")
+    check(meta["channels"] == 6 and ping["channels"] == 6, f"flow artifact channels {meta['channels']}")
+    check(got.dtype == np.float32 and desc_err <= 1e-4, f"flow daemon describe vs the modules: {desc_err}")
+    check(refused is not None and "exported for" in refused, f"3-channel clip to the flow daemon: {refused}")
+    check(c.bye["ok"], "flow daemon shutdown")
+    return rank_launches
+
+
+def phase_flow_models(gen, device="cuda"):
+    """Card against CPU at full width on 2 clips of 8 frames at 256x128:
+    ``resnet50_grl`` on a 6-channel trunk (the descriptor, within
+    ``MODEL_TOL``), ``ResNetBaseline`` and ``TwoStreamBaseline`` (both
+    heads) with their warm ms per 32 clips, and ``visualize_attention``'s
+    GCE masks (the PNG grid only where matplotlib imports)."""
+    from grl_tpu_torch.engine import visualize
+
+    out = {}
+    trunk = models.resnet50_trunk(last_stride=1, in_channels=6)
+    cnn = models.create("resnet50_grl", device=device, seed=0, trunk=trunk)
+    sia = models.create("siamese", device=device, seed=1, input_num=cnn.num_feat, output_num=512)
+    clips = torch.randint(0, 256, (2, 8, *FLOW_FRAME, 6), dtype=torch.uint8, device=device, generator=gen)
+    calibrate_bn(cnn, lambda: cnn(normalize(clips)))
+    calibrate_bn(sia, lambda: sia.self_attention(cnn(normalize(clips))[1]))
+    cnn_cpu, sia_cpu = copy.deepcopy(cnn).cpu(), copy.deepcopy(sia).cpu()
+    with torch.inference_mode():
+        d_card = make_descriptor_fn(cnn, sia)(clips).cpu()
+        d_cpu = make_descriptor_fn(cnn_cpu, sia_cpu)(clips.cpu())
+    out["grl_flow"] = {"descriptor_dim": int(d_card.shape[1]), "max_abs_diff": float((d_card - d_cpu).abs().max()),
+                       "ms_per_32_clips": descriptor_ms(cnn, sia, clips[:1].expand(32, -1, -1, -1, -1).contiguous())}
+    check(tuple(d_card.shape) == (2, 6144) and bool(torch.isfinite(d_card).all()), "flow descriptor shape/finite")
+    check(out["grl_flow"]["max_abs_diff"] <= MODEL_TOL, f"flow descriptor card vs CPU {out['grl_flow']}")
+
+    t0 = time.perf_counter()
+    masks_card = visualize.attention_masks(cnn, clips)
+    masks_cpu = visualize.attention_masks(cnn_cpu, clips.cpu())
+    out["attention"] = {"shape": list(masks_card.shape), "max_abs_diff": float(np.abs(masks_card - masks_cpu).max())}
+    if importlib.util.find_spec("matplotlib") is not None:
+        visualize.visualize_attention(cnn, clips.cpu().numpy(), str(FLOW_RUN / "attention"))
+        out["attention"]["rendered"] = sorted(p.name for p in (FLOW_RUN / "attention").glob("*.png"))
+    else:
+        out["attention"]["rendered"] = "matplotlib absent: masks checked, no PNG grid"
+    out["attention"]["seconds"] = time.perf_counter() - t0
+    check(masks_card.shape == (2, 8, FLOW_FRAME[0] // 16, FLOW_FRAME[1] // 16), f"attention masks {masks_card.shape}")
+    check(out["attention"]["max_abs_diff"] <= MODEL_TOL, f"attention masks card vs CPU {out['attention']}")
+    del cnn, sia, cnn_cpu, sia_cpu
+    torch.cuda.empty_cache()
+
+    x = normalize(clips)
+    for name, channels in (("resnet50", 3), ("two_stream", 6)):
+        model = models.create(name, device=device, seed=0)
+        inp = x[..., :channels]
+        calibrate_bn(model, lambda: model(inp))
+        with torch.inference_mode():
+            card = model(inp)
+            cpu = copy.deepcopy(model).cpu()(inp.cpu())
+            big = x[:1, ..., :channels].expand(32, -1, -1, -1, -1).contiguous()
+            ms = cuda_ms(lambda: model(big), reps=3)
+        errs = [float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu)]
+        out[name] = {"emb_shape": list(card[0].shape), "raw_shape": list(card[1].shape),
+                     "max_abs_diff_emb_raw": errs, "ms_per_32_clips": ms}
+        check(max(errs) <= MODEL_TOL, f"{name} card vs CPU {errs}")
+        check(card[1].shape[-1] == (4096 if name == "two_stream" else 2048), f"{name} raw width")
+        del model, big
+        torch.cuda.empty_cache()
+    log("flow_models", **out)
 
 
 def unit_rows(rows, dim, device, gen):
@@ -1683,6 +1991,12 @@ def main():
     cli_eval_launches = phase_cli_evaluate()
     mars_launches = phase_cli_mars()
     torch.cuda.empty_cache()
+    flow_launches, flow_ckpt = phase_flow_cli()
+    torch.cuda.empty_cache()
+    flow_rank_launches = phase_flow_serve(flow_ckpt, gen)
+    torch.cuda.empty_cache()
+    phase_flow_models(gen)
+    torch.cuda.empty_cache()
     staged_launches = phase_rerank_staged(gen)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(gen)
@@ -1691,9 +2005,9 @@ def main():
     torch.cuda.empty_cache()
     bf16_launches = phase_cli_bf16(gen)
 
-    # launches on this slice's path (``cli.evaluate --bf16 --rerank 1``);
+    # launches on this slice's path (``cli.evaluate --use-flow --rerank 1``);
     # every other path's count beside it
-    entry["launches"] = bf16_launches["evaluate"]
+    entry["launches"] = flow_launches["evaluate"]
     entry["launches_by_path"] = {"evaluate": launches["minplus"], "train": train_launches["minplus"],
                                  "cli_train": cli_train_launches["minplus"],
                                  "cli_evaluate": cli_eval_launches["minplus"],
@@ -1701,7 +2015,9 @@ def main():
                                  "rerank_staged": staged_launches, **serve_launches,
                                  "rank_cli": rank_cli_launches["minplus"],
                                  "cli_bf16_train": bf16_launches["train"],
-                                 "cli_bf16_evaluate": bf16_launches["evaluate"]}
+                                 "cli_bf16_evaluate": bf16_launches["evaluate"],
+                                 "flow_train": flow_launches["train"], "flow_evaluate": flow_launches["evaluate"],
+                                 "flow_rank_cli": flow_rank_launches}
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [entry]}))

@@ -24,9 +24,12 @@ the device it runs on; ``describe`` and ``serve`` load it with no model
 code. Every re-ranked answer ends in the min-plus kernel on the card.
 ``main`` runs in fp32 with TF32 off; ``features --bf16`` and
 ``export-model --bf16`` compute in bfloat16 (descriptors stay fp32), and a
-bf16 artifact is described and served as an fp32 one. Flags whose feature
-is not ported yet exit naming their ROADMAP item: ``--devices`` above 1
-(queue A, item 7), ``--use-flow`` (item 8).
+bf16 artifact is described and served as an fp32 one. ``features
+--use-flow`` reads 6-channel RGB|flow clips (iLIDS-VID, PRID-2011), and
+``export-model --use-flow`` exports the program for them (``"channels": 6``
+in its meta), which ``describe`` and ``serve`` then take and which refuse
+3-channel clips. ``--devices`` above 1 is not ported yet and exits naming
+ROADMAP queue A, item 7.
 
 ``rank`` does NOT prepend queries to the gallery and does not junk-filter:
 it is retrieval, not CMC.
@@ -65,8 +68,6 @@ _ZIP_MAGIC = b"PK\x03\x04"
 def _reject_unported(args):
     if getattr(args, "devices", 0) > 1:
         _not_ported("--devices above 1", 7, "work over several cards")
-    if getattr(args, "use_flow", False):
-        _not_ported("--use-flow", 8, "the two-stream RGB|flow trunk")
 
 
 def _load_models(args, num_classes, device):
@@ -90,6 +91,7 @@ def extract_split(args):
         # batch when only_eval=False (--rrs): any even value satisfies it
         2, args.seq_len, args.seq_srd, args.workers,
         only_eval=not args.rrs, split_id=args.split_id, dataset_kwargs=_synthetic_kwargs(args),
+        use_flow=bool(args.use_flow),
     )
     loader = {"query": query_loader, "gallery": gallery_loader}[args.split]
     cnn, siamese = _load_models(args, num_classes, device)
@@ -173,7 +175,7 @@ def export_model(args):
         raise SystemExit(f"--platforms {args.platforms}: a torch.export program runs on the device it "
                          f"was exported on; export on each with --device (this run: {device.type})")
     cnn, siamese = _load_models(args, args.num_classes, device)
-    channels = 3
+    channels = 6 if args.use_flow else 3
     example = torch.zeros((args.batch, args.seq_len, args.height, args.width, channels),
                           dtype=torch.uint8, device=device)
     program = torch.export.export(_DescriptorProgram(cnn, siamese).eval(), (example,))
@@ -1040,7 +1042,8 @@ def build_parser():
     f.add_argument("--features", type=int, default=cfg.model.features)
     f.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     f.add_argument("--tiny", action="store_true")
-    f.add_argument("--use-flow", action="store_true", help="not ported yet (ROADMAP queue A, item 8)")
+    f.add_argument("--use-flow", action="store_true",
+                   help="sequence datasets only: 6-channel RGB|flow clips (a flow-trained checkpoint)")
     f.add_argument("--seed", type=int, default=cfg.seed)
     f.add_argument("--synthetic-ids", type=int, default=0,
                    help="-d synthetic: must match the value the checkpoint "
@@ -1079,7 +1082,8 @@ def build_parser():
     e.add_argument("--arch2", type=str, default=cfg.model.arch2)
     e.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     e.add_argument("--tiny", action="store_true")
-    e.add_argument("--use-flow", action="store_true", help="not ported yet (ROADMAP queue A, item 8)")
+    e.add_argument("--use-flow", action="store_true",
+                   help="export for 6-channel RGB|flow clips (a flow-trained checkpoint)")
     e.add_argument("--seed", type=int, default=cfg.seed)
     e.add_argument("-o", "--out", type=str, required=True)
 

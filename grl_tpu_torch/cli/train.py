@@ -9,9 +9,11 @@ evaluated by, either package. ``--dataset synthetic`` runs the whole stack
 with no data on disk. ``main`` runs in fp32 with TF32 off
 (``set_precision``); ``--bf16`` computes every conv and linear in bfloat16
 over fp32 parameters, as grl_tpu's does, and writes the same checkpoint
-as an fp32 run. Flags whose feature is not ported yet exit with the
-ROADMAP item that brings it: ``--devices`` above 1 (queue A, item 7),
-``--use-flow`` and ``--visual`` (item 8).
+as an fp32 run. ``--use-flow`` (iLIDS-VID and PRID-2011 only) trains the
+same GRL model on 6-channel RGB|flow clips through a trunk whose conv1
+takes 6 channels; ``--visual 1`` writes the ranked strips of each
+evaluation under ``<logs-dir>/visual``. ``--devices`` above 1 is not
+ported yet and exits naming ROADMAP queue A, item 7.
 """
 
 from __future__ import annotations
@@ -40,12 +42,14 @@ def build_models(args, tiny=False):
     """``(cnn, siamese, siamese_uncorr)`` on the CPU with fresh weights from
     ``args.seed``: the full ResNet-50 GRL model, or with ``tiny`` a trunk of
     one bottleneck per stage at width 4 (smoke tests), as grl_tpu builds.
-    ``args.bf16`` gives every module ``compute_dtype=torch.bfloat16``."""
+    ``args.bf16`` gives every module ``compute_dtype=torch.bfloat16``;
+    ``args.use_flow`` gives the trunk 6 input channels (RGB | flow)."""
     cd = torch.bfloat16 if getattr(args, "bf16", False) else None
+    in_ch = 6 if getattr(args, "use_flow", False) else 3
     if tiny:
-        trunk = models.ResNetTrunk(layers=(1, 1, 1, 1), width=4, compute_dtype=cd)
+        trunk = models.ResNetTrunk(layers=(1, 1, 1, 1), width=4, compute_dtype=cd, in_channels=in_ch)
     else:
-        trunk = models.resnet50_trunk(last_stride=1, compute_dtype=cd)
+        trunk = models.resnet50_trunk(last_stride=1, compute_dtype=cd, in_channels=in_ch)
     seed = 3 * args.seed
     cnn = models.create("resnet50_grl", device="cpu", seed=seed, trunk=trunk, compute_dtype=cd)
     siamese = models.create(args.arch2, device="cpu", seed=seed + 1, input_num=cnn.num_feat,
@@ -61,8 +65,8 @@ def _not_ported(flag, item, what):
 
 
 def validate_args(args):
-    """Reject what grl_tpu rejects, and the flags whose feature the port
-    does not have yet, loudly instead of ignoring them."""
+    """Reject what grl_tpu rejects, and ``--devices`` above 1, which the
+    port does not have yet, loudly instead of ignoring them."""
     if getattr(args, "loss", "oim") != "oim":
         raise SystemExit(f"--loss {args.loss!r} is not implemented: the GRL training recipe is "
                          "the fixed 5-term OIM/verification/triplet objective; only 'oim' is supported")
@@ -87,12 +91,6 @@ def validate_args(args):
                          "or 'random' (consecutive window)")
     if getattr(args, "devices", 0) > 1:
         _not_ported("--devices above 1", 7, "data parallelism over several cards")
-    if getattr(args, "use_flow", False):
-        _not_ported("--use-flow", 8, "the two-stream RGB|flow trunk")
-    if getattr(args, "visual", 0):
-        _not_ported("--visual", 8, "ranked-strip rendering (engine/visualize.py)")
-    if getattr(args, "visual_from", ""):
-        _not_ported("--visual-from", 8, "ranked-strip rendering (engine/visualize.py)")
 
 
 def _synthetic_kwargs(args):
@@ -131,6 +129,7 @@ def main(args):
         only_eval=bool(args.evaluate), split_id=args.split, eval_batch=cfg.data.eval_batch_size,
         dataset_kwargs=_synthetic_kwargs(args),
         train_sample="random" if args.sample_method == "random" else "rrs_train",
+        use_flow=bool(args.use_flow),
     )
 
     cnn, siamese, siamese_uncorr = build_models(args, tiny=args.tiny)
@@ -152,7 +151,8 @@ def main(args):
 
     evaluator = Evaluator(cnn, siamese, micro_batch=cfg.eval.micro_batch, rerank=bool(args.rerank),
                           rerank_k1=cfg.eval.rerank_k1, rerank_k2=cfg.eval.rerank_k2,
-                          rerank_lambda=cfg.eval.rerank_lambda, device=device)
+                          rerank_lambda=cfg.eval.rerank_lambda,
+                          visual_dir=osp.join(args.logs_dir, "visual") if args.visual else None, device=device)
     if args.evaluate:
         load_train_state(state, osp.join(args.logs_dir, best_path))
         top1 = float(evaluator.evaluate(query_loader, gallery_loader).cmc[0])
@@ -236,7 +236,7 @@ def build_parser():
     parser.add_argument("--sampling-rate", type=int, default=3)
     parser.add_argument("--sample_method", type=str, default="rrs")
     parser.add_argument("--use-flow", action="store_true",
-                        help="not ported yet (ROADMAP queue A, item 8)")
+                        help="sequence datasets only: RGB|flow clips into a 6-channel trunk")
     parser.add_argument("--seed", type=int, default=cfg.seed)
     parser.add_argument("--lr", type=float, default=cfg.optim.lr)
     parser.add_argument("--lr_step", type=float, default=cfg.optim.lr_step)
@@ -245,7 +245,8 @@ def build_parser():
     parser.add_argument("--start-epoch", type=int, default=cfg.start_epoch)
     parser.add_argument("--epochs", type=int, default=cfg.epochs)
     parser.add_argument("--evaluate", type=int, default=0)
-    parser.add_argument("--visual", type=int, default=0, help="not ported yet (ROADMAP queue A, item 8)")
+    parser.add_argument("--visual", type=int, default=0,
+                        help="write each evaluation's ranked strips under <logs-dir>/visual")
     parser.add_argument("--rerank", type=int, default=0)
     parser.add_argument("--data-dir", type=str, metavar="PATH", default="")
     parser.add_argument("--logs-dir", type=str, metavar="PATH", default=osp.join(os.getcwd(), "log/grl"))

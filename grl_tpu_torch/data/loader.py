@@ -43,15 +43,21 @@ class ClipDataset:
     """Catalog + sampling mode -> per-index uint8 clip arrays.
 
     sample modes: 'rrs_train', 'rrs_test', 'dense', 'random'.
+
+    ``flow_map`` (optional) maps a tracklet's frame source to its
+    optical-flow companion (``SequenceDataset.flow_paths_for``); each frame
+    then carries 6 channels, RGB then flow, in every sample mode.
     """
 
-    def __init__(self, tracklets, seq_len=8, sample="rrs_train", height=256, width=128, seed=0):
+    def __init__(self, tracklets, seq_len=8, sample="rrs_train", height=256, width=128, seed=0,
+                 flow_map=None):
         self.tracklets = tracklets
         self.seq_len = seq_len
         self.sample = sample
         self.height = height
         self.width = width
         self.seed = seed
+        self.flow_map = flow_map
 
     def __len__(self):
         return len(self.tracklets)
@@ -66,11 +72,16 @@ class ClipDataset:
         x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
         return np.random.RandomState((x ^ (x >> 31)) % (2**31 - 1))
 
-    def _clip(self, source, idx):
-        return np.stack([_frame(source, int(i), self.height, self.width) for i in idx])
+    def _clip(self, source, flow, idx):
+        frames = [_frame(source, int(i), self.height, self.width) for i in idx]
+        if flow is not None:
+            frames = [np.concatenate([f, _frame(flow, int(i), self.height, self.width)], axis=-1)
+                      for f, i in zip(frames, idx)]
+        return np.stack(frames)
 
     def get(self, index, epoch=0):
         source, pid, camid = self.tracklets[index]
+        flow = self.flow_map(source) if self.flow_map is not None else None
         n = _num_frames(source)
         if self.sample == "rrs_train":
             idx = rrs_train_indices(n, self.seq_len, self._item_rng(index, epoch))
@@ -80,10 +91,10 @@ class ClipDataset:
             idx = random_window_indices(n, self.seq_len, self._item_rng(index, epoch))
         elif self.sample == "dense":
             grid = dense_indices(n, self.seq_len)
-            return np.stack([self._clip(source, row) for row in grid]), pid, camid
+            return np.stack([self._clip(source, flow, row) for row in grid]), pid, camid
         else:
             raise KeyError(f"Unknown sample method: {self.sample}")
-        return self._clip(source, idx), pid, camid
+        return self._clip(source, flow, idx), pid, camid
 
 
 class ClipLoader:
@@ -92,9 +103,9 @@ class ClipLoader:
     Indices come from ``sampler`` when given, else catalog order (shuffled
     with a ``RandomState(seed)`` when ``shuffle``). ``drop_last`` drops a
     short last batch; ``max_batches`` caps the batches of an epoch.
-    Yields ``(clips uint8 (b, S, h, w, 3), pids (b,), camids (b,))``;
-    with ``sample='dense'`` batch_size must be 1 and clips are
-    ``(n_clips, S, h, w, 3)``.
+    Yields ``(clips uint8 (b, S, h, w, c), pids (b,), camids (b,))``, c = 3,
+    or 6 with flow; with ``sample='dense'`` batch_size must be 1 and clips
+    are ``(n_clips, S, h, w, c)``.
     """
 
     def __init__(self, dataset: ClipDataset, batch_size=16, sampler=None, shuffle=False,
@@ -195,22 +206,26 @@ def get_data(name, root=None, batch_size=16, seq_len=8, seq_srd=4, workers=4, on
 
     The train loader pairs anchors and positives (``RandomPairSampler``,
     ``drop_last``); evaluation samples dense clips one tracklet at a time
-    when ``only_eval``, else one rrs_test clip per tracklet. Multi-host
-    sharding (``process_shard``, ``eval_stripe``) and optical-flow clips
-    (``use_flow``) are not ported and raise."""
+    when ``only_eval``, else one rrs_test clip per tracklet. ``use_flow``
+    gives every loader 6-channel RGB|flow clips; only the sequence
+    datasets have flow, any other raises ``ValueError``. Multi-host
+    sharding (``process_shard``, ``eval_stripe``) is not ported and
+    raises."""
     if process_shard or eval_stripe:
         raise NotImplementedError(
             "multi-host catalog sharding is not ported yet (ROADMAP queue A, item 7)")
-    if use_flow:
-        raise NotImplementedError(
-            "optical-flow clips (--use-flow) are not ported yet (ROADMAP queue A, item 8)")
     from .catalogs import get_sequence
 
     kwargs = dict(dataset_kwargs or {})
+    flow_map = None
     if name in ("ilidsvidsequence", "prid2011sequence"):
         dataset = get_sequence(name, root, split_id=split_id, seq_len=seq_len, seq_srd=seq_srd, **kwargs)
         train_list = dataset.trainval
         num_classes = dataset.num_trainval_ids
+        if use_flow:
+            flow_map = dataset.flow_paths_for
+    elif use_flow:
+        raise ValueError(f"{name} has no optical-flow companions (sequence datasets only)")
     elif name == "synthetic":
         dataset = get_sequence(name, **kwargs)
         train_list = dataset.train
@@ -226,14 +241,14 @@ def get_data(name, root=None, batch_size=16, seq_len=8, seq_srd=4, workers=4, on
         if batch_size % 2 != 0:
             raise ValueError("train batch_size must be even (anchor/positive pairs)")
         train_loader = ClipLoader(
-            ClipDataset(train_list, seq_len, train_sample, height, width, seed=seed),
+            ClipDataset(train_list, seq_len, train_sample, height, width, seed=seed, flow_map=flow_map),
             batch_size=batch_size, sampler=RandomPairSampler(train_list, seed=seed), drop_last=True,
             workers=workers)
 
     eval_sample = "dense" if only_eval else "rrs_test"
     eval_bs = 1 if only_eval else eval_batch
     query_loader, gallery_loader = (
-        ClipLoader(ClipDataset(items, seq_len, eval_sample, height, width), batch_size=eval_bs,
+        ClipLoader(ClipDataset(items, seq_len, eval_sample, height, width, flow_map=flow_map), batch_size=eval_bs,
                    workers=workers)
         for items in (dataset.query, dataset.gallery))
     return dataset, num_classes, train_loader, query_loader, gallery_loader

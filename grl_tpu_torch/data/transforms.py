@@ -5,7 +5,8 @@ All ops run where the clips are, drawing from a ``torch.Generator`` on the
 same device:
 - flip: one p=0.5 decision per clip, all frames together;
 - random erasing, per frame with p=0.5: area ratio U(0.02, 0.2), aspect
-  U(0.3, 1/0.3), a solid random RGB fill at a position drawn uniformly;
+  U(0.3, 1/0.3), a solid random fill (one value per channel) at a position
+  drawn uniformly;
   box sides are clamped to ``h - 1`` / ``w - 1`` (no rejection sampling);
 - normalize: ImageNet mean/std after /255.
 
@@ -86,7 +87,8 @@ def random_erase(gen, clips, sl=0.02, sh=0.2, asratio=0.3, p=0.5):
 
 
 def augment(gen, clips_u8, train=True):
-    """(b, t, h, w, 3) uint8 -> normalized float32; flip and erase when ``train``."""
+    """(b, t, h, w, c) uint8, c = 3 or 6 (RGB | flow) -> normalized float32;
+    flip and erase when ``train``."""
     if train:
         clips_u8 = random_erase(gen, random_flip(gen, clips_u8))
     return normalize(clips_u8)

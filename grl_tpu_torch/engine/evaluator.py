@@ -11,7 +11,8 @@
   k-reciprocal re-ranking on the device (with the min-plus kernel; the
   staged builder above n = 16384 items, as grl_tpu), and the
   MARS protocol on the device; ``save_distmat`` writes the final distance
-  matrix and ids to an npz with grl_tpu's keys.
+  matrix and ids to an npz with grl_tpu's keys, and ``visual_dir`` gets
+  the ranked strips of that matrix (``engine/visualize.py``).
 
 Features and distance matrices stay on the device; only the CMC curve and
 mAP come back to the host.
@@ -29,6 +30,7 @@ from .. import resolve_device
 from ..data.transforms import normalize
 from . import metrics
 from .rerank import re_ranking, warn_if_degenerate
+from .visualize import visualize_ranked_results
 
 
 def cosine_distance(qf, gf):
@@ -65,6 +67,13 @@ def print_protocol(cmc_curve, mAP, cmc_topk=(1, 5, 10, 20)):
             print("Rank-{:<3}: {:.1%}".format(r, cmc_curve[r - 1]))
 
 
+def eval_items(query_loader, gallery_loader):
+    """The ranked strips' item lists: the queries, and query ∪ gallery,
+    which are the distance matrix's columns."""
+    q_items = list(query_loader.dataset.tracklets)
+    return q_items, q_items + list(gallery_loader.dataset.tracklets)
+
+
 class EvalResult(NamedTuple):
     """What ``Evaluator.evaluate`` measured. ``distmat`` is the final (q, q+g)
     distance matrix (re-ranked when re-ranking is on); ``qf``/``gf`` are the
@@ -79,9 +88,11 @@ class EvalResult(NamedTuple):
 
 class Evaluator:
     def __init__(self, cnn, siamese, micro_batch=64, rerank=False, rerank_k1=20, rerank_k2=6,
-                 rerank_lambda=0.3, save_distmat=None, device=None):
+                 rerank_lambda=0.3, save_distmat=None, visual_dir=None, device=None):
         """``save_distmat``: an .npz path that each ``evaluate`` writes the
-        final distance matrix to, with the ids (grl_tpu's keys)."""
+        final distance matrix to, with the ids (grl_tpu's keys);
+        ``visual_dir``: a directory that each ``evaluate`` writes the ranked
+        strips of that matrix to."""
         self.device = resolve_device(device)
         self.cnn = cnn.to(self.device).eval()
         self.siamese = siamese.to(self.device).eval()
@@ -91,6 +102,7 @@ class Evaluator:
         self.rerank_k2 = rerank_k2
         self.rerank_lambda = rerank_lambda
         self.save_distmat = save_distmat
+        self.visual_dir = visual_dir
         self._describe = make_descriptor_fn(self.cnn, self.siamese)
 
     def _to_device(self, clips_np):
@@ -193,5 +205,9 @@ class Evaluator:
         cmc_curve, mAP = metrics.evaluate_device(distmat, q_pids, g_pids, q_camids, g_camids)
         print_protocol(cmc_curve, mAP, cmc_topk)
         print("------------------")
+        if self.visual_dir:
+            q_items, g_items = eval_items(query_loader, gallery_loader)
+            visualize_ranked_results(distmat.cpu().numpy(), q_items, g_items, self.visual_dir)
+            print(f"saved ranked visualizations to {self.visual_dir}")
         print(f"(evaluation took {time.time() - t0:.1f}s)")
         return EvalResult(cmc_curve, mAP, distmat, qf, gf)

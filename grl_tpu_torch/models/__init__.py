@@ -7,13 +7,17 @@ from .gce import GCEBackbone
 from .grl import GRLModel
 from .init import init_weights
 from .resnet import Bottleneck, ResNetTrunk, resnet50_trunk
+from .resnet_baseline import ResNetBaseline
 from .siamese import Siamese, SiameseVideo, pairwise_verification
 from .trl import MemoryBlock, TRLBlock
+from .two_stream import TwoStreamBaseline, two_stream_tiny
 
 _factory = {
     "resnet50_grl": GRLModel,
+    "resnet50": ResNetBaseline,
     "siamese": Siamese,
     "siamese_video": SiameseVideo,
+    "two_stream": TwoStreamBaseline,
 }
 
 
@@ -45,6 +49,9 @@ __all__ = [
     "SiameseVideo",
     "pairwise_verification",
     "ResNetTrunk",
+    "ResNetBaseline",
+    "TwoStreamBaseline",
+    "two_stream_tiny",
     "Bottleneck",
     "resnet50_trunk",
 ]

@@ -7,7 +7,8 @@ param tree (``conv1``, ``bn1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``
 ...) so the weight bridge maps every key one to one.
 
 Under a ``compute_dtype`` (bf16) every conv computes in that dtype; BatchNorm keeps fp32 statistics and
-returns the input's dtype, as grl_tpu's does.
+returns the input's dtype, as grl_tpu's does. ``in_channels=6`` is the
+RGB|flow packing of ``--use-flow``: only conv1 widens.
 """
 
 from __future__ import annotations
@@ -57,9 +58,10 @@ class ResNetTrunk(nn.Module):
     """conv1..layer4 feature trunk (no avgpool/fc: the re-ID path never uses
     them). Input and output are NCHW."""
 
-    def __init__(self, layers=(3, 4, 6, 3), last_stride=1, width=64, compute_dtype=None):
+    def __init__(self, layers=(3, 4, 6, 3), last_stride=1, width=64, compute_dtype=None, in_channels=3):
         super().__init__()
-        self.conv1 = _conv(3, width, 7, stride=2, padding=3, compute_dtype=compute_dtype)
+        self.in_channels = in_channels
+        self.conv1 = _conv(in_channels, width, 7, stride=2, padding=3, compute_dtype=compute_dtype)
         self.bn1 = nn.BatchNorm2d(width)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = width
@@ -81,5 +83,6 @@ class ResNetTrunk(nn.Module):
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 
-def resnet50_trunk(last_stride=1, compute_dtype=None):
-    return ResNetTrunk((3, 4, 6, 3), last_stride=last_stride, compute_dtype=compute_dtype)
+def resnet50_trunk(last_stride=1, compute_dtype=None, in_channels=3):
+    return ResNetTrunk((3, 4, 6, 3), last_stride=last_stride, compute_dtype=compute_dtype,
+                       in_channels=in_channels)

@@ -1,6 +1,6 @@
 """Weight bridge: grl_tpu ``(params, state)`` trees -> a torch state_dict,
 grl_tpu's whole train state -> the port's ``TrainState``, and torchvision
-ImageNet ResNet-50 weights -> the port's trunk.
+ImageNet ResNet-50 weights -> the port's trunk (3 or 6 input channels).
 
 The port names its submodules after grl_tpu's param-tree keys
 (``backbone.base.layer1.0.conv1``, ``temporal_learning_block.fwd.atte.2``
@@ -103,6 +103,9 @@ def load_imagenet_resnet50(trunk, flat):
     torchvision's names and layouts, so each entry loads as it is: ``fc.*``
     is dropped, ``num_batches_tracked`` too (grl_tpu keeps no such
     counter), and a name the trunk lacks or a shape that differs raises.
+    A trunk whose conv1 takes k×3 input channels (``--use-flow``: 6) gets
+    the 3-channel kernel tiled k times along the input axis and divided by
+    k, as grl_tpu inflates it; a width that is not a multiple raises.
     Returns ``trunk``."""
     own = trunk.state_dict()
     for key, value in flat.items():
@@ -111,6 +114,12 @@ def load_imagenet_resnet50(trunk, flat):
         if key not in own:
             raise KeyError(f"{key!r} is not in the trunk")
         value = np.asarray(value)
+        if key == "conv1.weight" and value.shape[1] != own[key].shape[1]:
+            tgt, src = own[key].shape[1], value.shape[1]
+            if tgt % src:
+                raise ValueError(f"trunk conv1 expects {tgt} input channels; cannot inflate the "
+                                 f"{src}-channel ImageNet kernel to a non-multiple")
+            value = np.tile(value, (1, tgt // src, 1, 1)) / (tgt // src)
         if value.shape != tuple(own[key].shape):
             raise ValueError(f"shape mismatch at {key}: {value.shape} vs {tuple(own[key].shape)}")
         own[key].copy_(torch.from_numpy(value))

@@ -214,7 +214,15 @@ def test_get_data_synthetic_and_sequence_equal_grl_tpu(tmp_path):
     assert_same_batches(ours[3], theirs[3], n=2)
 
 
-@pytest.mark.parametrize("option,item", [("process_shard", 7), ("eval_stripe", 7), ("use_flow", 8)])
+@pytest.mark.parametrize("option,item", [("process_shard", 7), ("eval_stripe", 7), ("use_flow", None)],
+                         ids=["process_shard-7", "eval_stripe-7", "use_flow-8"])
 def test_get_data_unported_options_name_their_roadmap_item(option, item):
+    """Multi-host sharding raises naming its ROADMAP item; ``use_flow`` off a
+    sequence dataset raises ``ValueError``, as grl_tpu's does."""
+    if item is None:
+        for fn in (get_data, j_get_data):
+            with pytest.raises(ValueError, match="no optical-flow companions"):
+                fn("synthetic", **{option: True})
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         get_data("synthetic", **{option: True})

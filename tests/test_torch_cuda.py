@@ -476,3 +476,53 @@ def test_bf16_train_step_on_card_matches_cpu(gen):
     assert r["cosine"] >= tol["cosine"] and tol["ratio"][0] <= r["ratio"] <= tol["ratio"][1], r
     assert r["lowest_cosine"][1][0] >= tol["leaf_cosine"], r
     assert tol["leaf_ratio"][0] <= r["ratios"][0] and r["ratios"][1] <= tol["leaf_ratio"][1], r
+
+
+@pytest.fixture
+def fp32_policy():
+    """The CLIs' precision policy (TF32 off) for the test, restored after."""
+    from grl_tpu_torch import precision_flags, set_precision, set_precision_flags
+
+    before = precision_flags()
+    set_precision()
+    yield
+    set_precision_flags(before)
+
+
+def _card_vs_cpu(model, clips_cpu):
+    """``model`` (eval mode) on the CPU and a copy on the card: outputs as
+    a tuple of CPU tensors each."""
+    import copy
+
+    with torch.inference_mode():
+        cpu = model.eval()(clips_cpu)
+        card = copy.deepcopy(model).cuda()(clips_cpu.cuda())
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+    return as_tuple(cpu), tuple(t.cpu() for t in as_tuple(card))
+
+
+def test_flow_grl_model_on_card_matches_cpu(gen, fp32_policy):
+    """The ``--use-flow`` GRL model (6-channel tiny trunk) on 6-channel clips."""
+    from grl_tpu_torch import models
+    from grl_tpu_torch.data import normalize
+
+    trunk = models.ResNetTrunk(layers=(1, 1, 1, 1), width=4, in_channels=6)
+    cnn = models.create("resnet50_grl", device="cpu", seed=0, trunk=trunk)
+    clips = normalize(torch.randint(0, 256, (2, 4, 64, 32, 6), dtype=torch.uint8, generator=torch.Generator()
+                                    .manual_seed(0)))
+    cpu, card = _card_vs_cpu(cnn, clips)
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["resnet50", "two_stream"])
+def test_per_frame_baselines_on_card_match_cpu(gen, fp32_policy, name):
+    """``ResNetBaseline`` and ``TwoStreamBaseline`` at full width, both heads."""
+    from grl_tpu_torch import models
+
+    model = models.create(name, device="cpu", seed=0, num_features=128)
+    channels = 6 if name == "two_stream" else 3
+    clips = torch.randn(2, 2, 64, 32, channels, generator=torch.Generator().manual_seed(1))
+    cpu, card = _card_vs_cpu(model, clips)
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-3)

@@ -65,10 +65,13 @@ def art(tmp_path_factory):
     from grl_tpu.utils.serialization import save_train_state
 
     tmp = tmp_path_factory.mktemp("extract")
-    cnn, sia, unc = build_models(SimpleNamespace(bf16=False, use_flow=False, arch2="siamese"), tiny=True)
-    state = init_train_state(jax.random.PRNGKey(0), cnn, sia, unc, 4, cnn.num_feat, SGD())
-    ckpt = str(tmp / "checkpoint.npz")
-    save_train_state(state, {"epoch": 1, "best_top1": 0.0}, ckpt)
+    ckpts = {}
+    for flow in (False, True):
+        cnn, sia, unc = build_models(SimpleNamespace(bf16=False, use_flow=flow, arch2="siamese"), tiny=True)
+        state = init_train_state(jax.random.PRNGKey(0), cnn, sia, unc, 4, cnn.num_feat, SGD())
+        ckpts[flow] = str(tmp / f"checkpoint{'_flow' if flow else ''}.npz")
+        save_train_state(state, {"epoch": 1, "best_top1": 0.0}, ckpts[flow])
+    ckpt = ckpts[False]
     port_main("export-model", "--checkpoint", ckpt, *EXPORT, "-o", str(tmp / "port.npz"))
     jax_main("export-model", "--checkpoint", ckpt, *EXPORT, "-o", str(tmp / "jax.npz"))
     rng = np.random.RandomState(0)
@@ -80,7 +83,8 @@ def art(tmp_path_factory):
     np.savez(tmp / "more.npz", features=feats[40:339], pids=np.arange(40, 339), camids=np.arange(299) % 6)
     np.savez(tmp / "queries.npz", features=feats[339:343])
     np.savez(tmp / "queries5.npz", features=feats[343:348])
-    return SimpleNamespace(dir=tmp, ckpt=ckpt, port=str(tmp / "port.npz"), jax=str(tmp / "jax.npz"), clips=clips,
+    return SimpleNamespace(dir=tmp, ckpt=ckpt, flow_ckpt=ckpts[True], port=str(tmp / "port.npz"),
+                           jax=str(tmp / "jax.npz"), clips=clips,
                            feats=feats, path=lambda name: str(tmp / name))
 
 
@@ -376,8 +380,17 @@ def test_flags_are_grl_tpu_s_plus_device():
 
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--model", "m.npz", "--devices", "2"], 7),
-    (["export-model", "-o", "m.npz", "--use-flow"], 8),
+    (["export-model", "--use-flow"], None),
 ], ids=["serve-devices", "export-use-flow"])
-def test_unported_flags_exit_naming_their_roadmap_item(argv, item):
+def test_unported_flags_exit_naming_their_roadmap_item(art, argv, item):
+    """``--devices 2`` exits naming its ROADMAP item; ``export-model
+    --use-flow``, ported since, exports a 6-channel program from a flow
+    checkpoint."""
+    if item is None:
+        out = art.path("flow_model.npz")
+        meta = port_main(*argv, "--checkpoint", art.flow_ckpt, *EXPORT, "-o", out)
+        assert meta["channels"] == 6 and meta["dim"] == DIM
+        assert json.loads(str(np.load(out)["meta"]))["channels"] == 6
+        return
     with pytest.raises(SystemExit, match=f"queue A, item {item}"):
         port_main(*argv)

@@ -7,6 +7,9 @@ inputs then go through both. Tolerance 2e-4 abs/rel, as in
 test_models_parity.py.
 """
 
+import copy
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,12 @@ from grl_tpu_torch.utils import state_dict_from_jax
 B, T, H, W = 2, 3, 32, 16
 WIDTH = 4  # trunk out channels 8 * WIDTH * 4 = 128
 TOL = 2e-4
+# a full-width ResNet-50 in train mode (53 BatchNorms on batch statistics
+# over 6 frames): against an fp64 run of the same weights, the port's fp32
+# embedding is 3.0e-4 off and grl_tpu's 2.3e-4, and the running variance of
+# ``feat_bn`` (values to 36) 7e-5 and 2.9e-4 relative, so the two fp32
+# runs are held to 1e-3 there; a unbiased/biased variance mix-up is 20 %
+TRAIN_FULL_TOL = 1e-3
 
 
 def np_tree(tree):
@@ -159,6 +168,88 @@ def test_fresh_init_follows_grl_tpu_distributions():
 
 
 def test_create_names_and_rejects_unknown():
-    assert tm.names() == ["resnet50_grl", "siamese", "siamese_video"]
+    assert tm.names() == jm.names() == ["resnet50", "resnet50_grl", "siamese", "siamese_video", "two_stream"]
     with pytest.raises(KeyError):
         tm.create("nope", device="cpu")
+
+
+def flow_clips(seed=0):
+    return np.random.RandomState(seed).randn(B, T, H, W, 6).astype(np.float32)
+
+
+def close_bn_stats(torch_module, params, new_state, tol=TOL):
+    """The port's BN running statistics after a train-mode forward equal
+    grl_tpu's new state."""
+    want = state_dict_from_jax(params, np_tree(new_state), torch_module)
+    got = torch_module.state_dict()
+    keys = [k for k in got if k.endswith(("running_mean", "running_var"))]
+    assert keys
+    for k in keys:
+        close(got[k], want[k].numpy(), tol)
+
+
+def test_six_channel_trunk_and_grl_model():
+    """``in_channels=6`` (the ``--use-flow`` trunk): conv1 takes RGB | flow."""
+    jt = jm.ResNetTrunk(layers=(1, 1, 1, 1), width=WIDTH, in_channels=6)
+    tt = tm.ResNetTrunk(layers=(1, 1, 1, 1), width=WIDTH, in_channels=6)
+    assert tuple(tt.conv1.weight.shape) == (WIDTH, 6, 7, 7)
+    params, state = jax_init(jt, 6)
+    x = flow_clips()[:, 0]
+    want, _ = jt.apply(params, state, jnp.asarray(x), training=False)
+    with torch.no_grad():
+        got = bridged(tt, params, state)(torch.from_numpy(x).permute(0, 3, 1, 2))
+    close(got.permute(0, 2, 3, 1), want)
+
+    jg = jm.GRLModel(trunk=jm.ResNetTrunk(layers=(1, 1, 1, 1), width=WIDTH, in_channels=6))
+    tg = tm.GRLModel(trunk=tm.ResNetTrunk(layers=(1, 1, 1, 1), width=WIDTH, in_channels=6))
+    params, state = jax_init(jg, 7)
+    x = flow_clips(1)
+    (want_u, want_c), _ = jg.apply(params, state, jnp.asarray(x), training=False)
+    with torch.no_grad():
+        got_u, got_c = bridged(tg, params, state)(torch.from_numpy(x))
+    close(got_u, want_u)
+    close(got_c, want_c)
+
+
+@functools.lru_cache(maxsize=None)
+def _resnet50_baseline_init():
+    # one grl_tpu init (15 s of eager jax.random) serves num_features 0 and
+    # 16: the 0 variant's tree is the 16 variant's less feat / feat_bn
+    return jax_init(jm.ResNetBaseline(num_features=16), 8)
+
+
+def baseline_pair(kind):
+    """(grl_tpu module, port module, params, state, clips) for one case."""
+    if kind == "two_stream":
+        jmod = jm.two_stream_tiny(num_features=16)
+        return (jmod, tm.two_stream_tiny(num_features=16), *jax_init(jmod, 8), flow_clips(2))
+    nf = int(kind.split("_")[1])
+    params, state = copy.deepcopy(_resnet50_baseline_init())
+    return jm.ResNetBaseline(num_features=nf), tm.ResNetBaseline(num_features=nf), params, state, clips(2)
+
+
+@pytest.mark.parametrize("kind", ["resnet50_0", "resnet50_16", "two_stream"])
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+def test_per_frame_baselines(kind, training):
+    """``ResNetBaseline`` (full-width trunk, ``num_features`` 0 and 16) and
+    ``two_stream_tiny``: both heads, and in train mode the BN running
+    statistics."""
+    jmod, tmod, params, state, x = baseline_pair(kind)
+    (want_e, want_r), new_state = jmod.apply(params, state, jnp.asarray(x), training=training)
+    port = bridged(tmod, params, state).train(training)
+    with torch.no_grad():
+        got_e, got_r = port(torch.from_numpy(x))
+    assert got_e.shape == want_e.shape and got_r.shape == want_r.shape
+    if kind == "resnet50_0":
+        assert got_e is got_r
+    tol = TRAIN_FULL_TOL if training and kind != "two_stream" else TOL
+    close(got_e, want_e, tol)
+    close(got_r, want_r, tol)
+    if training:
+        close_bn_stats(port, params, new_state, tol)
+
+
+def test_two_stream_rejects_three_channels():
+    model = tm.two_stream_tiny().eval()
+    with pytest.raises(ValueError, match="6 channels"):
+        model(torch.from_numpy(clips()))
