@@ -113,7 +113,27 @@ descriptor), with seeded random weights. Phases:
     ``flow_models``: the 6-channel ``resnet50_grl`` descriptor,
     ``ResNetBaseline`` and ``TwoStreamBaseline`` card against CPU on 2
     clips with their warm ms per 32 clips, and ``visualize_attention``'s
-    masks card against CPU.
+    masks card against CPU;
+21. ``data_parallel`` (after ``train_eval``), in a child process that forms
+    a one-rank NCCL group on the card (``parallel.launch``), so NCCL's
+    set-up and teardown never touch this process; the group path is forced
+    at world size 1 (global BatchNorm, the gather after the CNN, the
+    gradients' sum, the broadcast from rank 0, the collective stop):
+    ``dp_step``: one full-width step at batch 16 (8 pairs x 8 x 256x128)
+    from one state, the group step against the plain step, held to
+    ``train_check``'s fp32 tolerance; ``dp_bn``: ``GlobalBatchNorm`` (on
+    the card, torch's fused BatchNorm ops) against ``BatchNorm2d`` at the
+    trunk's first BatchNorm (128 x 64 x 128 x 64), fp32 and bf16 inputs:
+    output, gradients and running statistics relative to the reference's
+    largest value (1e-4 fp32, 2^-6 bf16), and the ms of each beside the
+    two-pass Function's; ``dp_train``: ``Trainer.train`` for
+    3 steps under the group and the plain trainer beside it, CUDA-event ms
+    of each step; ``dp_evaluate``: the striped ``Evaluator.evaluate
+    (rerank=True)`` of the slice's catalog under the group against the
+    one-card ``Evaluator`` (rank-1, mAP, distances within 1e-5), the
+    min-plus kernel's launches counted around it. Then, in this process,
+    ``dp_cli``: ``cli.train --devices 2`` on a one-card machine runs on one
+    card (grl_tpu's cap) and says so.
 
 The kernel is also timed at the serve route's shape (32 x 11598 x 11598)
 and at one slab of the staged builder (1980 x 8192 x 19960).
@@ -152,7 +172,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from grl_tpu_torch import models, ops, precision_flags, set_precision, set_precision_flags
+from grl_tpu_torch import models, ops, parallel, precision_flags, set_precision, set_precision_flags
 from grl_tpu_torch.cli import evaluate as cli_evaluate
 from grl_tpu_torch.cli import extract as cli_extract
 from grl_tpu_torch.cli import train as cli_train
@@ -165,6 +185,8 @@ from grl_tpu_torch.engine import (Evaluator, Trainer, grl_loss_fn, init_train_st
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
 from grl_tpu_torch.engine import rerank as rerank_mod
 from grl_tpu_torch.engine.rerank import re_ranking, re_ranking_padded
+from grl_tpu_torch.nn import GlobalBatchNorm, convert_global_batchnorm
+from grl_tpu_torch.nn.norm import _GlobalBatchNormFn
 from grl_tpu_torch.ops.build import BUILD_INFO
 from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
@@ -937,6 +959,254 @@ def phase_train_eval(state, ds):
     check(err <= KERNEL_TOL, f"re-ranking after training, kernel vs plain min-sum: {err}")
     check(np.isfinite(res.cmc).all() and 0.0 <= res.mAP <= 1.0, "protocol out of range")
     return launches
+
+
+def dp_modules(device, tiny=False):
+    """The GRL modules of ``train_check`` (seeds 0-2), or ``tiny`` ones for a
+    CPU rehearsal."""
+    if not tiny:
+        return grl_modules(device)
+    cnn = models.create("resnet50_grl", device=device, seed=0, trunk=models.ResNetTrunk(layers=(1, 1, 1, 1), width=4))
+    sia = models.create("siamese", device=device, seed=1, input_num=cnn.num_feat, output_num=512)
+    unc = models.create("siamese_video", device=device, seed=2, input_num=cnn.num_feat)
+    return cnn, sia, unc
+
+
+def group_train_step(modules, mesh, clips, targets, luts):
+    """``one_train_step`` through the group step on ``mesh`` (this rank's
+    slice of the batch), from copies of ``modules``."""
+    mods = [copy.deepcopy(m) for m in modules]
+    state = init_train_state(*mods, luts["corr"].shape[0], num_feat=luts["corr"].shape[1], device=mesh.device)
+    state.luts = {k: v.to(mesh.device) for k, v in luts.items()}
+    parallel.sharded_train_state(state, mesh)
+    before = {k: v.detach().double().cpu().clone() for k, v in state.models.state_dict().items()}
+    t0 = time.perf_counter()
+    state, m = make_train_step(mesh=mesh)(state, parallel.shard_batch(clips, mesh).to(mesh.device),
+                                          parallel.shard_batch(targets, mesh), TRAIN_LR)
+    m = {k: float(v) for k, v in m.items()}
+    seconds = time.perf_counter() - t0
+    updates = {k: v.detach().double().cpu() - before[k] for k, v in state.models.state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+    return m, updates, {k: v.double().cpu() for k, v in state.luts.items()}, seconds
+
+
+DP_BN_SHAPE = (128, 64, 128, 64)  # the trunk's first BatchNorm at batch 16 x 8 frames of 256x128
+DP_BN_TOL = {"float32": 1e-4, "bfloat16": 2.0**-6}  # of the reference's largest magnitude
+
+
+def dp_bn_check(device, gen, shape=DP_BN_SHAPE):
+    """``GlobalBatchNorm`` in train mode on one rank (the fused ops on a
+    card, the two-pass Function on the CPU) against torch's BatchNorm2d on
+    the same input: at one rank the global batch is the local one. fp32 and
+    bf16 inputs (fp32 parameters): output, the three gradients and the
+    running statistics, each relative to the reference's largest magnitude;
+    on a card the ms of a forward and backward of each, and of the two-pass
+    Function on the card."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, device=device, generator=gen).mul_(2).add_(0.5).to(dtype)
+        dy = torch.randn(shape, device=device, generator=gen).to(dtype)
+        ref = torch.nn.BatchNorm2d(shape[1]).to(device).train()
+        with torch.no_grad():
+            ref.weight.copy_(torch.rand(shape[1], device=device, generator=gen) + 0.5)
+            ref.bias.copy_(torch.randn(shape[1], device=device, generator=gen))
+        glob = convert_global_batchnorm(torch.nn.Sequential(copy.deepcopy(ref)))[0]
+
+        def run(bn):
+            xr = x.detach().requires_grad_(True)
+            y = bn(xr)
+            y.backward(dy)
+            return [y, xr.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var]
+
+        got, want = run(glob), run(ref)
+        names = ("out", "grad_input", "grad_weight", "grad_bias", "running_mean", "running_var")
+        err = {k: float((a.detach().float() - b.float()).abs().max() / b.float().abs().max())
+               for k, a, b in zip(names, got, want)}
+        row = {"shape": list(shape), "rel_err": err, "tol": DP_BN_TOL[str(dtype)[6:]], "out_dtype": str(got[0].dtype),
+               "global_ms": None, "torch_ms": None, "two_pass_ms": None}
+        if torch.device(device).type == "cuda":
+            two_pass = lambda xr: _GlobalBatchNormFn.apply(xr, ref.weight, ref.bias, ref.eps)[0]
+            for k, fn in (("global_ms", glob), ("torch_ms", ref), ("two_pass_ms", two_pass)):
+                row[k] = cuda_ms(lambda: fn(x.detach().requires_grad_(True)).backward(dy), 5)
+        rows[str(dtype)[6:]] = row
+        del x, dy, got, want
+    return rows
+
+
+class StepClock:
+    """Each step's ms: CUDA events on a card, the host clock on the CPU."""
+
+    def __init__(self, step, device):
+        self.step, self.cuda, self.ms = step, torch.device(device).type == "cuda", []
+
+    def __call__(self, state, clips, targets, lr):
+        if self.cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = self.step(state, clips, targets, lr)
+            end.record()
+            self.ms.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            state, m = self.step(state, clips, targets, lr)
+            self.ms.append(time.perf_counter() - t0)
+        return state, m
+
+    def read(self):
+        sync("cuda" if self.cuda else "cpu")
+        return [s.elapsed_time(e) for s, e in self.ms] if self.cuda else [t * 1e3 for t in self.ms]
+
+
+def dp_rank_job(opts):
+    """The ``data_parallel`` phase's work on rank 0 of a one-rank group."""
+    mesh = parallel.data_mesh()
+    device, frame, tiny = mesh.device, tuple(opts["frame"]), opts["tiny"]
+    set_precision()
+    gen = torch.Generator(device=device).manual_seed(8)
+    since = time.perf_counter()
+    marks = {}
+
+    def mark(what):  # wall seconds of each part of the child's work
+        nonlocal since
+        sync(device)
+        marks[what] = time.perf_counter() - since
+        since = time.perf_counter()
+
+    out = {"mesh": repr(mesh), "backend": torch.distributed.get_backend(), "part_seconds": marks}
+
+    # one step at batch 16 from one state: the group step against the plain step
+    batch, num_classes = 16, 8
+    modules = dp_modules(device, tiny)
+    clips_u8 = torch.randint(0, 256, (batch, 8, *frame, 3), dtype=torch.uint8, device=device, generator=gen)
+    calibrate_grl(*modules, clips_u8[:4])
+    clips = normalize(clips_u8).cpu()
+    targets = np.repeat(np.arange(batch // 2) % num_classes, 2)
+    feat = modules[0].num_feat
+    luts = {k: torch.randn(num_classes, feat, device=device, generator=gen) for k in ("corr", "uncorr")}
+    luts = {k: (v / v.norm(dim=1, keepdim=True)).cpu() for k, v in luts.items()}
+    mark("modules")
+    plain = one_train_step(modules, device, torch.float32, clips, targets, luts)
+    group = group_train_step(modules, mesh, clips, targets, luts)
+    mark("step")
+    out["step"] = {"vs_plain": compare_steps(group, plain), "tol": TRAIN_TOL_FP32,
+                   "losses": {"group": group[0], "plain": plain[0]}, "seconds": {"group": group[3], "plain": plain[3]}}
+    del plain, group
+    empty_cache(device)
+    out["bn"] = dp_bn_check(device, gen, (8, 16, 16, 8) if tiny else DP_BN_SHAPE)
+    empty_cache(device)
+    mark("bn")
+
+    # Trainer.train, 3 steps at batch 16 under the group, and the plain trainer beside it
+    ds = SyntheticVideoReID(num_train_ids=16, num_test_ids=2, tracklets_per_id=2, num_cams=2, frames_range=(8, 24),
+                            height=frame[0], width=frame[1], seed=0)
+    steps = 3
+
+    def loader(batch_slice=None):
+        return ClipLoader(ClipDataset(ds.train, 8, "rrs_train", *frame, seed=0), batch_size=batch,
+                          sampler=RandomPairSampler(ds.train, seed=0), drop_last=True, workers=4,
+                          max_batches=steps, batch_slice=batch_slice)
+
+    runs = {}
+    for name in ("group", "plain"):
+        state = init_train_state(*copy.deepcopy(modules), ds.num_train_pids, num_feat=feat, device=device)
+        on = mesh if name == "group" else None
+        if on is not None:
+            parallel.sharded_train_state(state, on)
+        step = make_train_step(device=device, mesh=on)
+        clock = StepClock(step, device)
+        data = loader(slice(0, batch)) if on is not None else loader()
+        state, stats = Trainer(clock, print_freq=100, seed=0, device=device, mesh=on).train(0, state, data, TRAIN_LR)
+        runs[name] = {"step_ms": clock.read(), "loss": stats["loss"],
+                      "bn_global": sum(isinstance(m, GlobalBatchNorm) for m in state.models.modules())}
+        if name == "group" and not tiny:
+            # where the group step's device time goes: two more steps, profiled
+            x = normalize(clips_u8)
+            runs["group_profile"] = device_profile(lambda: [step(state, x, targets, TRAIN_LR) for _ in range(2)],
+                                                   top=12)
+        del state
+        empty_cache(device)
+    runs["group_minus_plain_warm_ms"] = (statistics.mean(runs["group"]["step_ms"][1:])
+                                         - statistics.mean(runs["plain"]["step_ms"][1:]))
+    out["train"] = runs
+    mark("train")
+
+    # the striped, re-ranked evaluation of the slice's catalog, against one card
+    ev = SyntheticVideoReID(num_train_ids=0, num_test_ids=24, tracklets_per_id=2, num_cams=2, frames_range=(8, 40),
+                            height=frame[0], width=frame[1], seed=0)
+    cnn, sia = modules[:2]
+    dense = lambda items: ClipLoader(ClipDataset(items, 8, "dense", *frame), batch_size=1, workers=4)
+    mark("eval_catalog")
+    one = Evaluator(cnn, sia, micro_batch=32, rerank=True, device=device).evaluate(dense(ev.query), dense(ev.gallery))
+    meta = {"query": parallel.eval_catalog_meta(ev.query), "gallery": parallel.eval_catalog_meta(ev.gallery)}
+    stripes = [parallel.stripe_catalog(items)[0] for items in (ev.query, ev.gallery)]
+    zero_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    res = Evaluator(cnn, sia, micro_batch=32, rerank=True, device=device, mesh=mesh).evaluate(
+        dense(stripes[0]), dense(stripes[1]), multihost=meta)
+    sync(device)
+    out["evaluate"] = {"seconds": time.perf_counter() - t0, "launches": read_launches(),
+                       "rank1": float(res.cmc[0]), "mAP": res.mAP, "one_card_rank1": float(one.cmc[0]),
+                       "one_card_mAP": one.mAP, "distmat_max_abs_diff": float((res.distmat - one.distmat).abs().max()),
+                       "finite": bool(torch.isfinite(res.distmat).all()), "query": len(ev.query),
+                       "gallery": len(ev.gallery)}
+    mark("evaluate")
+    return out
+
+
+def empty_cache(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_data_parallel(device="cuda", tiny=False, frame=FRAME, cli_extra=()):
+    """The ``data_parallel`` phase (the module docstring, 21); returns the
+    min-plus kernel's launches in the group's evaluation."""
+    t0 = time.perf_counter()
+    out = parallel.launch(dp_rank_job, {"frame": list(frame), "tiny": tiny}, 1, device, timeout=600)[0]
+    child_s = time.perf_counter() - t0
+    step, train, ev = out["step"], out["train"], out["evaluate"]
+    log("dp_step", mesh=out["mesh"], backend=out["backend"], batch=16, frames=8, frame=list(frame),
+        part_seconds=out["part_seconds"], **step)
+    log("dp_train", steps=3, batch=16, **{k: v for k, v in train.items() if k != "group_profile"})
+    if "group_profile" in train:
+        log("dp_train_profile", steps=2, **train["group_profile"])
+    log("dp_evaluate", **ev, tol=KERNEL_TOL)
+    for dtype, row in out["bn"].items():
+        log("dp_bn", dtype=dtype, **row)
+        for k, err in row["rel_err"].items():
+            check(err <= row["tol"], f"GlobalBatchNorm vs BatchNorm2d, {dtype} {k}: {err} > {row['tol']}")
+    for k, limit in step["tol"].items():
+        check(step["vs_plain"][k] <= limit, f"group step vs plain step, fp32, {k}: {step['vs_plain'][k]} > {limit}")
+    check(all(np.isfinite(v) for v in step["losses"]["group"].values()), "group step metrics not finite")
+    check(train["group"]["bn_global"] > 0 and train["plain"]["bn_global"] == 0,
+          f"global BatchNorm where expected: {train['group']['bn_global']}, {train['plain']['bn_global']}")
+    check(len(train["group"]["step_ms"]) == 3 and np.isfinite(train["group"]["loss"]), "group trainer did not train")
+    check(ev["finite"], "striped re-ranked distmat not finite")
+    check(ev["distmat_max_abs_diff"] <= KERNEL_TOL, f"striped vs one-card distmat: {ev['distmat_max_abs_diff']}")
+    check(ev["rank1"] == ev["one_card_rank1"] and ev["mAP"] == ev["one_card_mAP"],
+          f"striped rank-1/mAP {ev['rank1']}/{ev['mAP']} vs one card {ev['one_card_rank1']}/{ev['one_card_mAP']}")
+    if torch.device(device).type == "cuda":
+        check(ev["launches"]["minplus"] == 1, f"min-plus launches in the group's evaluation: {ev['launches']}")
+
+    # cli.train --devices 2 where the script runs: capped at the visible cards
+    logs = BUILD / "chip_dp_cli"
+    shutil.rmtree(logs, ignore_errors=True)
+    t1 = time.perf_counter()
+    top1 = run_cli(cli_train, ["-d", "synthetic", "--synthetic-ids", "8", "-b", "16", "--epochs", "1", "--devices", "2",
+                               "--logs-dir", str(logs), *cli_extra], device)
+    sync(device)
+    text = (logs / "log_train0.txt").read_text()
+    visible = parallel.visible_devices(device)
+    said = [line for line in text.splitlines() if line.startswith("--devices 2:")]
+    log("dp_cli", seconds=time.perf_counter() - t1, top1=top1, visible_devices=visible, said=said,
+        rank_logs=sorted(p.name for p in logs.glob("log_train0*.txt")), child_seconds=child_s,
+        phase_seconds=time.perf_counter() - t0)
+    check(np.isfinite(top1), f"cli.train --devices 2: rank-1 {top1}")
+    if torch.device(device).type == "cuda" and visible == 1:
+        check(parallel.auto_mesh(pairs=8, limit=2) == 1, "--devices 2 on one card asks for more than one rank")
+        check(said and not (logs / "log_train0.p1.txt").exists(), "cli.train --devices 2 on one card did not say so")
+    return ev["launches"]["minplus"]
 
 
 def sync(device):
@@ -1974,6 +2244,8 @@ def main():
     train_launches = phase_train_eval(state, ds)
     del state
     torch.cuda.empty_cache()
+    dp_launches = phase_data_parallel()
+    torch.cuda.empty_cache()
     state, ds = phase_train(gen, bf16=True)
     step_ms, vs_fp64 = phase_precision_steps(state, ds, gen)
     del state
@@ -2017,7 +2289,7 @@ def main():
                                  "cli_bf16_train": bf16_launches["train"],
                                  "cli_bf16_evaluate": bf16_launches["evaluate"],
                                  "flow_train": flow_launches["train"], "flow_evaluate": flow_launches["evaluate"],
-                                 "flow_rank_cli": flow_rank_launches}
+                                 "flow_rank_cli": flow_rank_launches, "dp_evaluate": dp_launches}
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [entry]}))

@@ -14,22 +14,28 @@ and PRID-2011). ``--visual 1`` writes the ranked strips under
 ``<logs-dir>/visual``. ``--visual-from NPZ`` reads a ``--save-distmat``
 file, runs the host protocol on it and renders its strips, with no model,
 no checkpoint and no device: it is host-only by design, as grl_tpu's.
+``--devices N`` (default 0: every visible card) evaluates on one rank per
+card, or N gloo ranks under ``--device cpu``, each describing its stripe
+of the catalogs; under ``torchrun`` the ranks stand for grl_tpu's
+processes. Every rank reports the same rank-1 and mAP.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import os.path as osp
 
 import numpy as np
 
-from .. import resolve_device, set_precision
+from .. import parallel, resolve_device, set_precision
 from ..config import PRESETS, ExperimentConfig
 from ..data import get_data
 from ..engine import Evaluator, eval_items, init_train_state, metrics, print_protocol
 from ..engine.visualize import visualize_ranked_results
 from ..utils import load_train_state
-from .train import DATASETS, _synthetic_kwargs, build_models, open_log, validate_args
+from .train import (DATASETS, _synthetic_kwargs, build_models, eval_meta, open_log, ranks_to_launch, say_one_device,
+                    validate_args)
 
 
 def visual_from(args, query_loader, gallery_loader):
@@ -53,18 +59,33 @@ def visual_from(args, query_loader, gallery_loader):
 def main(args):
     set_precision()
     validate_args(args)
-    open_log(args.logs_dir, "test")
+    mesh = None
+    if args.visual_from:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise SystemExit("--visual-from is single-host (it renders from the full catalogs)")
+    else:
+        mesh = parallel.maybe_initialize_distributed(args.device)
+        if mesh is None and (n := ranks_to_launch(args)) > 1:
+            return parallel.launch(main, args, n, args.device)[0]
+    open_log(args.logs_dir, "test", 0 if mesh is None else mesh.rank)
     print(f"==========\nArgs:{args}\n==========")
-    _, num_classes, _, query_loader, gallery_loader = get_data(
+    dataset, num_classes, _, query_loader, gallery_loader = get_data(
         args.dataset, args.data_dir, args.batch_size, args.seq_len, args.seq_srd, args.workers,
         only_eval=True, split_id=args.split,
-        dataset_kwargs=_synthetic_kwargs(args), use_flow=bool(args.use_flow),
+        dataset_kwargs=_synthetic_kwargs(args), use_flow=bool(args.use_flow), eval_stripe=mesh is not None,
     )
     if args.visual_from:
         return visual_from(args, query_loader, gallery_loader)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     print(f"device: {device}")
+    if mesh is None:
+        say_one_device(args)
+    else:
+        print(f"data parallel: {mesh}")
+        if mesh.multihost and args.devices and args.devices < mesh.size:
+            raise SystemExit(f"multi-host evaluation: the mesh must span every device ({mesh.size}); "
+                             "drop --devices")
     cnn, siamese, siamese_uncorr = build_models(args, tiny=args.tiny)
     state = init_train_state(cnn, siamese, siamese_uncorr, num_classes, num_feat=cnn.num_feat,
                              device=device)
@@ -76,8 +97,10 @@ def main(args):
     evaluator = Evaluator(cnn, siamese, micro_batch=cfg.eval.micro_batch, rerank=bool(args.rerank),
                           rerank_k1=cfg.eval.rerank_k1, rerank_k2=cfg.eval.rerank_k2,
                           rerank_lambda=cfg.eval.rerank_lambda, save_distmat=args.save_distmat or None,
-                          visual_dir=osp.join(args.logs_dir, "visual") if args.visual else None, device=device)
-    top1 = float(evaluator.evaluate(query_loader, gallery_loader).cmc[0])
+                          visual_dir=osp.join(args.logs_dir, "visual") if args.visual else None, device=device,
+                          mesh=mesh)
+    multihost = None if mesh is None else eval_meta(dataset)
+    top1 = float(evaluator.evaluate(query_loader, gallery_loader, multihost=multihost).cmc[0])
     print("rank-1 accuracy is", top1)
     return top1
 
@@ -114,7 +137,8 @@ def build_parser():
                         help="sequence datasets only: evaluate a flow-trained checkpoint on 6-channel "
                              "(RGB|flow) clips")
     parser.add_argument("--devices", type=int, default=0,
-                        help="cards to evaluate on; above 1 is not ported yet (ROADMAP queue A, item 7)")
+                        help="cap the data-parallel card count (0 = every visible card; with --device cpu, "
+                             "the number of gloo ranks)")
     parser.add_argument("--synthetic-ids", type=int, default=0,
                         help="-d synthetic: number of generated train identities, as the "
                              "checkpoint's training run had them (0 = library default)")

@@ -28,8 +28,11 @@ bf16 artifact is described and served as an fp32 one. ``features
 --use-flow`` reads 6-channel RGB|flow clips (iLIDS-VID, PRID-2011), and
 ``export-model --use-flow`` exports the program for them (``"channels": 6``
 in its meta), which ``describe`` and ``serve`` then take and which refuse
-3-channel clips. ``--devices`` above 1 is not ported yet and exits naming
-ROADMAP queue A, item 7.
+3-channel clips. ``features --devices N`` (default 0: every visible card)
+describes the split on one rank per card (N gloo ranks under ``--device
+cpu``), each its stripe, and rank 0 writes the assembled rows in catalog
+order. ``serve --devices`` above 1 (grl_tpu row-shards the re-ranking)
+is not ported yet and exits naming ROADMAP queue A, item 7.
 
 ``rank`` does NOT prepend queries to the gallery and does not junk-filter:
 it is retrieval, not CMC.
@@ -47,14 +50,14 @@ import os.path as osp
 import numpy as np
 import torch
 
-from .. import resolve_device, set_precision
+from .. import parallel, resolve_device, set_precision
 from ..config import ExperimentConfig
 from ..data import get_data
 from ..engine import Evaluator, init_train_state
 from ..engine.evaluator import _euclidean, cosine_distance, make_descriptor_fn
 from ..engine.rerank import re_ranking, re_ranking_padded, top_k, warn_if_degenerate
 from ..utils import load_train_state
-from .train import _not_ported, _synthetic_kwargs, build_models
+from .train import _not_ported, _synthetic_kwargs, build_models, eval_meta, ranks_to_launch, say_one_device
 
 # serve's rerank takes the one-program capacity-padded builder up to this
 # many total items (padded queries + capacity + enrollment block), the staged
@@ -66,8 +69,10 @@ _ZIP_MAGIC = b"PK\x03\x04"
 
 
 def _reject_unported(args):
-    if getattr(args, "devices", 0) > 1:
-        _not_ported("--devices above 1", 7, "work over several cards")
+    """What the port does not have yet exits naming its ROADMAP item:
+    ``serve --devices`` above 1 (grl_tpu row-shards the re-ranking)."""
+    if args.command == "serve" and getattr(args, "devices", 1) > 1:
+        _not_ported("--devices above 1", 7, "row-sharded re-ranking over several cards")
 
 
 def _load_models(args, num_classes, device):
@@ -83,23 +88,32 @@ def _load_models(args, num_classes, device):
 
 
 def extract_split(args):
-    _reject_unported(args)
-    device = resolve_device(args.device)
-    _dataset, num_classes, _train, query_loader, gallery_loader = get_data(
+    mesh = parallel.maybe_initialize_distributed(args.device)
+    if mesh is None and (n := ranks_to_launch(args)) > 1:
+        return parallel.launch(main, args, n, args.device)[0]
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    if mesh is None:
+        say_one_device(args)
+    dataset, num_classes, _train, query_loader, gallery_loader = get_data(
         args.dataset, args.data_dir,
         # train loaders are unused here, but get_data validates the train
         # batch when only_eval=False (--rrs): any even value satisfies it
         2, args.seq_len, args.seq_srd, args.workers,
         only_eval=not args.rrs, split_id=args.split_id, dataset_kwargs=_synthetic_kwargs(args),
-        use_flow=bool(args.use_flow),
+        use_flow=bool(args.use_flow), eval_stripe=mesh is not None,
     )
     loader = {"query": query_loader, "gallery": gallery_loader}[args.split]
     cnn, siamese = _load_models(args, num_classes, device)
     evaluator = Evaluator(cnn, siamese, micro_batch=args.micro_batch, device=device)
     feats, pids, camids = evaluator.extract_features(loader)
+    if mesh is not None:
+        # each rank described its stripe; the rows assemble in catalog order
+        n_total, pids, camids = eval_meta(dataset)[args.split]
+        feats = parallel.gather_striped_rows(feats, n_total, mesh)
     feats = feats.cpu().numpy().astype(np.float32)
-    np.savez(args.out, features=feats, pids=pids, camids=camids)
-    print(f"wrote {feats.shape[0]} x {feats.shape[1]} descriptors to {args.out}")
+    if mesh is None or mesh.rank == 0:
+        np.savez(args.out, features=feats, pids=pids, camids=camids)
+        print(f"wrote {feats.shape[0]} x {feats.shape[1]} descriptors to {args.out}")
     return feats.shape
 
 
@@ -168,7 +182,6 @@ def export_model(args):
     and no model code. The npz holds the program's bytes under ``exported``
     and grl_tpu's ``meta`` keys; ``platforms`` is the device it was exported
     on. ``describe`` pads the final chunk to the batch."""
-    _reject_unported(args)
     device = resolve_device(args.device)
     platforms = [p.strip() for p in args.platforms.split(",") if p.strip()]
     if platforms and platforms != [device.type]:
@@ -459,8 +472,7 @@ def serve(args, inp=None, out=None):
 
     inp = inp if inp is not None else sys.stdin
     out = out if out is not None else sys.stdout
-    if getattr(args, "devices", 1) > 1:
-        _not_ported("--devices above 1", 7, "row-sharded re-ranking over several cards")
+    _reject_unported(args)
     device = resolve_device(args.device)
 
     call, meta = _load_artifact(args.model, device)
@@ -1049,7 +1061,8 @@ def build_parser():
                    help="-d synthetic: must match the value the checkpoint "
                         "was trained with (regenerates the same catalog)")
     f.add_argument("--devices", type=int, default=0,
-                   help="cards to extract on; above 1 is not ported yet (ROADMAP queue A, item 7)")
+                   help="cap the data-parallel card count (0 = every visible card; with --device cpu, "
+                        "the number of gloo ranks)")
 
     r = sub.add_parser("rank", help="rank queries against a gallery index")
     r.add_argument("--query", type=str, required=True)

@@ -12,8 +12,20 @@ over fp32 parameters, as grl_tpu's does, and writes the same checkpoint
 as an fp32 run. ``--use-flow`` (iLIDS-VID and PRID-2011 only) trains the
 same GRL model on 6-channel RGB|flow clips through a trunk whose conv1
 takes 6 channels; ``--visual 1`` writes the ranked strips of each
-evaluation under ``<logs-dir>/visual``. ``--devices`` above 1 is not
-ported yet and exits naming ROADMAP queue A, item 7.
+evaluation under ``<logs-dir>/visual``.
+
+Data parallelism, as grl_tpu's: ``--devices N`` (default 0: every visible
+card) launches one rank per card (``parallel.launch``; the largest count
+up to N that divides the batch's pairs, capped at the visible cards), or
+N gloo ranks under ``--device cpu``. Every rank draws the global batch and
+loads its slice, and the group step equals one card's step on the global
+batch. Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks stand for
+grl_tpu's processes: each trains on its identity shard of the catalog with
+``--batch-size`` / ranks clips per step. The eval catalogs are striped
+over the ranks either way. Only rank 0 writes checkpoints, scalars and the
+main log; rank r > 0 logs to ``log_train{N}.p{r}.txt``. A SIGTERM to the
+launching process reaches every rank; they stop together (the collective
+stop) and rank 0 checkpoints once.
 """
 
 from __future__ import annotations
@@ -28,7 +40,7 @@ import threading
 import numpy as np
 import torch
 
-from .. import models, resolve_device, set_precision
+from .. import models, parallel, resolve_device, set_precision
 from ..config import ExperimentConfig
 from ..data import get_data
 from ..engine import Evaluator, Trainer, init_train_state, make_train_step, step_decay_lr
@@ -65,8 +77,7 @@ def _not_ported(flag, item, what):
 
 
 def validate_args(args):
-    """Reject what grl_tpu rejects, and ``--devices`` above 1, which the
-    port does not have yet, loudly instead of ignoring them."""
+    """Reject what grl_tpu rejects, loudly instead of ignoring it."""
     if getattr(args, "loss", "oim") != "oim":
         raise SystemExit(f"--loss {args.loss!r} is not implemented: the GRL training recipe is "
                          "the fixed 5-term OIM/verification/triplet objective; only 'oim' is supported")
@@ -89,8 +100,6 @@ def validate_args(args):
     if method not in ("rrs", "random"):
         raise SystemExit(f"--sample_method {method!r} unknown: 'rrs' (restricted random sampling) "
                          "or 'random' (consecutive window)")
-    if getattr(args, "devices", 0) > 1:
-        _not_ported("--devices above 1", 7, "data parallelism over several cards")
 
 
 def _synthetic_kwargs(args):
@@ -105,32 +114,100 @@ def _synthetic_kwargs(args):
     return kwargs
 
 
-def open_log(logs_dir, tag):
-    """Tee stdout into the first free ``log_{tag}{N}.txt`` under ``logs_dir``."""
+def open_log(logs_dir, tag, rank=0):
+    """Tee stdout into the first free ``log_{tag}{N}.txt`` under ``logs_dir``
+    (``log_{tag}{N}.p{rank}.txt`` for a rank above 0 of a group, so ranks
+    sharing a directory never write one file)."""
     mkdir_if_missing(logs_dir)
+    suffix = f".p{rank}" if rank else ""
     run = 0
-    while osp.exists(osp.join(logs_dir, f"log_{tag}{run}.txt")):
+    while osp.exists(osp.join(logs_dir, f"log_{tag}{run}{suffix}.txt")):
         run += 1
-    sys.stdout = Logger(osp.join(logs_dir, f"log_{tag}{run}.txt"))
+    sys.stdout = Logger(osp.join(logs_dir, f"log_{tag}{run}{suffix}.txt"))
+
+
+def ranks_to_launch(args, pairs=None):
+    """How many ranks ``--devices`` asks for when no group is live:
+    ``parallel.auto_mesh``'s rule (every visible card by default, capped by
+    ``--devices``, the largest count that divides ``pairs``)."""
+    return parallel.auto_mesh(pairs=pairs, limit=args.devices or None, device=args.device)
+
+
+def say_one_device(args, pairs=None):
+    """A ``--devices`` above 1 that runs on one device says so."""
+    if args.devices > 1:
+        print(f"--devices {args.devices}: running on one {args.device} device "
+              f"({parallel.visible_devices(args.device)} visible, {pairs} pairs per batch)")
+
+
+def check_multihost(args, mesh, pairs=None):
+    """grl_tpu's refusals for a multi-process launch: every rank's card must
+    take part in the collectives, and each rank must hold whole pairs."""
+    if not mesh.multihost:
+        return
+    if pairs is not None and args.batch_size % (2 * mesh.size):
+        raise SystemExit(f"--batch-size {args.batch_size} must be a multiple of 2 * process_count "
+                         f"({2 * mesh.size}) so every host gets whole pairs")
+    if args.devices and args.devices < mesh.size:
+        raise SystemExit(f"multi-host: --devices {args.devices} caps the mesh below the global device count "
+                         f"({mesh.size}); every chip must participate in the collectives; drop --devices")
+
+
+def eval_meta(dataset):
+    """``Evaluator.evaluate``'s ``multihost`` dict for the whole catalogs."""
+    return {"query": parallel.eval_catalog_meta(dataset.query),
+            "gallery": parallel.eval_catalog_meta(dataset.gallery)}
+
+
+class _NoCheckpoints:
+    """The checkpointer of a rank above 0: the state is the same on every
+    rank, and rank 0 writes it."""
+
+    def save(self, *a, **k):
+        pass
+
+    def wait(self):
+        pass
 
 
 def main(args):
     set_precision()
     validate_args(args)
-    device = resolve_device(args.device)
+    pairs = None if args.evaluate else args.batch_size // 2
+    mesh = parallel.maybe_initialize_distributed(args.device)
+    if mesh is None and (n := ranks_to_launch(args, pairs)) > 1:
+        return parallel.launch(main, args, n, args.device)[0]
+    rank = 0 if mesh is None else mesh.rank
+    device = resolve_device(args.device) if mesh is None else mesh.device
     np.random.seed(args.seed)
-    open_log(args.logs_dir, "test" if args.evaluate else "train")
+    open_log(args.logs_dir, "test" if args.evaluate else "train", rank)
     print(f"==========\nArgs:{args}\n==========")
     print(f"device: {device}")
+    local_batch, batch_slice = args.batch_size, None
+    if mesh is None:
+        say_one_device(args, pairs)
+    else:
+        check_multihost(args, mesh, pairs)
+        print(f"data parallel: {mesh}")
+        if mesh.multihost:
+            # --batch-size is the global batch; each rank loads its share
+            # of it from its identity shard
+            local_batch = args.batch_size // mesh.size
+            print(f"multi-host: {mesh.size} processes, {local_batch} clips/host/step")
+        else:
+            b = args.batch_size // mesh.size
+            batch_slice = slice(mesh.rank * b, (mesh.rank + 1) * b)
 
     cfg = ExperimentConfig.from_args(args)
     dataset, num_classes, train_loader, query_loader, gallery_loader = get_data(
-        args.dataset, args.data_dir, args.batch_size, args.seq_len, args.seq_srd, args.workers,
+        args.dataset, args.data_dir, local_batch, args.seq_len, args.seq_srd, args.workers,
         only_eval=bool(args.evaluate), split_id=args.split, eval_batch=cfg.data.eval_batch_size,
         dataset_kwargs=_synthetic_kwargs(args),
         train_sample="random" if args.sample_method == "random" else "rrs_train",
-        use_flow=bool(args.use_flow),
+        use_flow=bool(args.use_flow), process_shard=bool(mesh and mesh.multihost),
+        eval_stripe=mesh is not None, batch_slice=batch_slice,
     )
+    multihost = None if mesh is None else eval_meta(dataset)
 
     cnn, siamese, siamese_uncorr = build_models(args, tiny=args.tiny)
     state = init_train_state(cnn, siamese, siamese_uncorr, num_classes, num_feat=cnn.num_feat,
@@ -148,22 +225,29 @@ def main(args):
         print(f"resumed from {args.resume} at epoch {start_epoch} (best {best_top1:.1%})")
     else:
         start_epoch, best_top1 = args.start_epoch, 0.0
+    if mesh is not None:
+        parallel.sharded_train_state(state, mesh)
 
     evaluator = Evaluator(cnn, siamese, micro_batch=cfg.eval.micro_batch, rerank=bool(args.rerank),
                           rerank_k1=cfg.eval.rerank_k1, rerank_k2=cfg.eval.rerank_k2,
                           rerank_lambda=cfg.eval.rerank_lambda,
-                          visual_dir=osp.join(args.logs_dir, "visual") if args.visual else None, device=device)
+                          visual_dir=osp.join(args.logs_dir, "visual") if args.visual else None, device=device,
+                          mesh=mesh)
     if args.evaluate:
         load_train_state(state, osp.join(args.logs_dir, best_path))
-        top1 = float(evaluator.evaluate(query_loader, gallery_loader).cmc[0])
+        top1 = float(evaluator.evaluate(query_loader, gallery_loader, multihost=multihost).cmc[0])
         print("best rank-1 accuracy is", top1)
         return top1
 
     # stale scalar files are wiped only on fresh runs: a resumed run keeps
-    # its earlier curves
-    writer = ScalarWriter(osp.join(args.logs_dir, "train_log"), tensorboard=bool(args.tensorboard),
-                          wipe=not args.resume)
-    step_fn = make_train_step(oim_scalar=args.oim_scalar, oim_momentum=args.oim_momentum, device=device)
+    # its earlier curves. The scalars are the global batch's, the same on
+    # every rank: rank 0 writes them
+    writer = None
+    if rank == 0:
+        writer = ScalarWriter(osp.join(args.logs_dir, "train_log"), tensorboard=bool(args.tensorboard),
+                              wipe=not args.resume)
+    step_fn = make_train_step(oim_scalar=args.oim_scalar, oim_momentum=args.oim_momentum, device=device,
+                              mesh=mesh)
     # graceful preemption: the handler asks the trainer to stop at the next
     # step boundary, the loop below checkpoints and returns; --resume
     # replays the interrupted epoch
@@ -180,9 +264,10 @@ def main(args):
     except ValueError:
         pass  # not the main thread (embedded use): no preemption handling
 
-    trainer = Trainer(step_fn, writer, seed=args.seed, stop_event=stop, device=device)
-    # the write of a checkpoint overlaps the next epoch's training
-    checkpointer = AsyncCheckpointer()
+    trainer = Trainer(step_fn, writer, seed=args.seed, stop_event=stop, device=device, mesh=mesh)
+    # the write of a checkpoint overlaps the next epoch's training; the
+    # state is the same on every rank, and rank 0 writes it
+    checkpointer = AsyncCheckpointer() if rank == 0 else _NoCheckpoints()
     try:
         for epoch in range(start_epoch, args.epochs):
             lr = step_decay_lr(args.lr, epoch, args.lr_step)
@@ -191,8 +276,11 @@ def main(args):
             if stop.is_set():
                 checkpointer.save(state, {"epoch": epoch, "best_top1": best_top1}, ckpt_path)
                 checkpointer.wait()
-                print(f"preempted during epoch {epoch}: state saved to {ckpt_path}; "
-                      f"continue with --resume {ckpt_path}")
+                if rank == 0:
+                    print(f"preempted during epoch {epoch}: state saved to {ckpt_path}; "
+                          f"continue with --resume {ckpt_path}")
+                else:
+                    print(f"preempted during epoch {epoch}: rank 0 saves the state")
                 break
             print(f"epoch {epoch}: loss {stats['loss']:.3f} "
                   f"batch {stats['batch_time']:.3f}s data {stats['data_time']:.3f}s")
@@ -201,7 +289,7 @@ def main(args):
                 (epoch + 1) > 30 and (epoch + 1) % 3 == 0)
             is_best = False
             if do_eval:
-                top1 = float(evaluator.evaluate(query_loader, gallery_loader).cmc[0])
+                top1 = float(evaluator.evaluate(query_loader, gallery_loader, multihost=multihost).cmc[0])
                 is_best = top1 > best_top1
                 best_top1 = max(top1, best_top1)
             # every --ckpt-freq epochs; eval, best and final epochs always
@@ -212,7 +300,8 @@ def main(args):
     finally:
         for sig, handler in prev_handlers:
             signal.signal(sig, handler)
-    writer.close()
+    if writer is not None:
+        writer.close()
     return best_top1
 
 
@@ -258,7 +347,8 @@ def build_parser():
     parser.add_argument("--tensorboard", action="store_true",
                         help="also write TensorBoard event files (tensorboardX)")
     parser.add_argument("--devices", type=int, default=0,
-                        help="cards to train on; above 1 is not ported yet (ROADMAP queue A, item 7)")
+                        help="cap the data-parallel card count (0 = every visible card; with --device cpu, "
+                             "the number of gloo ranks)")
     parser.add_argument("--synthetic-ids", type=int, default=0,
                         help="-d synthetic: number of generated train identities (0 = library default)")
     parser.add_argument("--ckpt-freq", type=int, default=1,

@@ -7,7 +7,10 @@ by ``data/jpeg.py``. A thread-pool stage decodes and gathers frames and a
 prefetch thread hands uint8 batches to the caller, which uploads,
 augments and normalizes them on the device. Training batches come from a
 sampler (``RandomPairSampler``) with ``drop_last``. ``get_data`` builds a
-catalog's loaders as grl_tpu's does, on one process.
+catalog's loaders as grl_tpu's does, and for a rank of a data-parallel
+group: its identity shard of the train catalog (``process_shard``), its
+slice of every global batch (``batch_slice``), or its stripe of the eval
+catalogs (``eval_stripe``).
 """
 
 from __future__ import annotations
@@ -103,13 +106,18 @@ class ClipLoader:
     Indices come from ``sampler`` when given, else catalog order (shuffled
     with a ``RandomState(seed)`` when ``shuffle``). ``drop_last`` drops a
     short last batch; ``max_batches`` caps the batches of an epoch.
+    ``batch_slice`` (a ``slice``) loads only those positions of each batch:
+    the batches are formed at ``batch_size`` and cut after, so a rank's
+    slice of a global batch holds the same clips, byte for byte, as those
+    rows of the whole batch (each item's frames are drawn from its index
+    and the epoch); ``len()`` is unchanged.
     Yields ``(clips uint8 (b, S, h, w, c), pids (b,), camids (b,))``, c = 3,
     or 6 with flow; with ``sample='dense'`` batch_size must be 1 and clips
     are ``(n_clips, S, h, w, c)``.
     """
 
     def __init__(self, dataset: ClipDataset, batch_size=16, sampler=None, shuffle=False,
-                 drop_last=False, workers=4, prefetch=2, seed=0, max_batches=None):
+                 drop_last=False, workers=4, prefetch=2, seed=0, max_batches=None, batch_slice=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
@@ -119,6 +127,7 @@ class ClipLoader:
         self.prefetch = prefetch
         self.rng = np.random.RandomState(seed)
         self.max_batches = max_batches
+        self.batch_slice = batch_slice
         # epoch counter: salts the per-item sampling RNG so rrs_train and
         # random draws differ across epochs
         self._epoch = 0
@@ -149,6 +158,8 @@ class ClipLoader:
             batches.pop()
         if self.max_batches is not None:
             batches = batches[: self.max_batches]
+        if self.batch_slice is not None:
+            batches = [batch[self.batch_slice] for batch in batches]
 
         q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -199,7 +210,8 @@ class ClipLoader:
 
 def get_data(name, root=None, batch_size=16, seq_len=8, seq_srd=4, workers=4, only_eval=False,
              split_id=0, height=256, width=128, eval_batch=30, seed=0, dataset_kwargs=None,
-             train_sample="rrs_train", process_shard=False, use_flow=False, eval_stripe=False):
+             train_sample="rrs_train", process_shard=False, use_flow=False, eval_stripe=False,
+             batch_slice=None):
     """Build ``(dataset, num_classes, train_loader, query_loader,
     gallery_loader)`` as ``grl_tpu/data/loader.py::get_data`` does, for
     mars, duke, ilidsvidsequence, prid2011sequence and synthetic.
@@ -208,12 +220,15 @@ def get_data(name, root=None, batch_size=16, seq_len=8, seq_srd=4, workers=4, on
     ``drop_last``); evaluation samples dense clips one tracklet at a time
     when ``only_eval``, else one rrs_test clip per tracklet. ``use_flow``
     gives every loader 6-channel RGB|flow clips; only the sequence
-    datasets have flow, any other raises ``ValueError``. Multi-host
-    sharding (``process_shard``, ``eval_stripe``) is not ported and
-    raises."""
-    if process_shard or eval_stripe:
-        raise NotImplementedError(
-            "multi-host catalog sharding is not ported yet (ROADMAP queue A, item 7)")
+    datasets have flow, any other raises ``ValueError``.
+
+    A rank of a group (``parallel``): ``process_shard`` loads this rank's
+    identity shard of the train catalog (``shard_catalog``) with
+    ``batch_size`` its LOCAL batch, every rank's epoch capped to the
+    smallest shard's steps (``min_shard_size``), as grl_tpu's processes;
+    ``batch_slice`` loads that slice of every global batch of
+    ``batch_size``; ``eval_stripe`` loads this rank's contiguous stripe of
+    the query and gallery catalogs (``stripe_catalog``)."""
     from .catalogs import get_sequence
 
     kwargs = dict(dataset_kwargs or {})
@@ -240,15 +255,35 @@ def get_data(name, root=None, batch_size=16, seq_len=8, seq_srd=4, workers=4, on
     if not only_eval:
         if batch_size % 2 != 0:
             raise ValueError("train batch_size must be even (anchor/positive pairs)")
+        max_batches = None
+        if process_shard:
+            # every rank caps its epoch to the smallest shard's step count
+            # (each computes it alike): a rank with more steps would wait
+            # forever in the gradient reduction of a step its peers never take
+            from ..parallel import min_shard_size, shard_catalog
+
+            max_batches = (2 * min_shard_size(train_list)) // batch_size
+            if max_batches == 0:
+                raise ValueError(
+                    f"multi-host: the smallest identity shard ({min_shard_size(train_list)} tracklets) "
+                    f"cannot fill one local batch of {batch_size}; every epoch would run zero steps; "
+                    "use fewer ranks or a smaller per-rank batch")
+            train_list = shard_catalog(train_list)
         train_loader = ClipLoader(
             ClipDataset(train_list, seq_len, train_sample, height, width, seed=seed, flow_map=flow_map),
             batch_size=batch_size, sampler=RandomPairSampler(train_list, seed=seed), drop_last=True,
-            workers=workers)
+            workers=workers, max_batches=max_batches, batch_slice=batch_slice)
 
     eval_sample = "dense" if only_eval else "rrs_test"
     eval_bs = 1 if only_eval else eval_batch
+    query_list, gallery_list = dataset.query, dataset.gallery
+    if eval_stripe:
+        from ..parallel import stripe_catalog
+
+        query_list, _, _ = stripe_catalog(query_list)
+        gallery_list, _, _ = stripe_catalog(gallery_list)
     query_loader, gallery_loader = (
         ClipLoader(ClipDataset(items, seq_len, eval_sample, height, width, flow_map=flow_map), batch_size=eval_bs,
                    workers=workers)
-        for items in (dataset.query, dataset.gallery))
+        for items in (query_list, gallery_list))
     return dataset, num_classes, train_loader, query_loader, gallery_loader

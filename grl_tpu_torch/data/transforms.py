@@ -11,7 +11,11 @@ same device:
 - normalize: ImageNet mean/std after /255.
 
 ``random_flip``/``random_erase`` make the draws; ``flip``/``erase`` apply
-given draws deterministically, so a test can feed them grl_tpu's.
+given draws deterministically, so a test can feed them grl_tpu's. With
+``rows=(start, total)`` the clips are rows ``start:start + b`` of a batch
+of ``total``: the draws are made for all ``total`` clips, as one
+``augment`` of the whole batch makes them, and this slice's are applied
+(a data-parallel rank augments its slice of the global batch so).
 """
 
 from __future__ import annotations
@@ -39,9 +43,16 @@ def flip(clips, decision):
     return torch.where(decision[:, None, None, None, None], clips.flip(3), clips)
 
 
-def random_flip(gen, clips):
+def _rows(clips, rows):
+    """(first row, rows drawn for) of ``clips`` in its batch."""
+    return (0, clips.shape[0]) if rows is None else rows
+
+
+def random_flip(gen, clips, rows=None):
     """Clip-consistent horizontal flip, p=0.5 per clip."""
-    return flip(clips, torch.rand(clips.shape[0], generator=gen, device=clips.device) < 0.5)
+    start, total = _rows(clips, rows)
+    decision = torch.rand(total, generator=gen, device=clips.device) < 0.5
+    return flip(clips, decision[start:start + clips.shape[0]])
 
 
 def erase(clips, gate, area, aspect, ux, uy, color):
@@ -70,25 +81,27 @@ def erase(clips, gate, area, aspect, ux, uy, color):
     return out.reshape(b, t, h, w, c)
 
 
-def random_erase(gen, clips, sl=0.02, sh=0.2, asratio=0.3, p=0.5):
+def random_erase(gen, clips, sl=0.02, sh=0.2, asratio=0.3, p=0.5, rows=None):
     """Per-frame random erasing on uint8-scale values. clips: (b, t, h, w, c)."""
     b, t, h, w, c = clips.shape
-    n = b * t
+    start, total = _rows(clips, rows)
+    n = total * t
+    frames = slice(start * t, (start + b) * t)
 
     def uniform(lo=0.0, hi=1.0):
-        return lo + (hi - lo) * torch.rand(n, generator=gen, device=clips.device)
+        return (lo + (hi - lo) * torch.rand(n, generator=gen, device=clips.device))[frames]
 
     gate = uniform() <= p
     area = uniform(sl, sh) * (h * w)
     aspect = uniform(asratio, 1.0 / asratio)
     ux, uy = uniform(), uniform()
-    color = torch.randint(0, 256, (n, c), generator=gen, device=clips.device)
+    color = torch.randint(0, 256, (n, c), generator=gen, device=clips.device)[frames]
     return erase(clips, gate, area, aspect, ux, uy, color)
 
 
-def augment(gen, clips_u8, train=True):
+def augment(gen, clips_u8, train=True, rows=None):
     """(b, t, h, w, c) uint8, c = 3 or 6 (RGB | flow) -> normalized float32;
-    flip and erase when ``train``."""
+    flip and erase when ``train`` (``rows``: the module docstring)."""
     if train:
-        clips_u8 = random_erase(gen, random_flip(gen, clips_u8))
+        clips_u8 = random_erase(gen, random_flip(gen, clips_u8, rows), rows=rows)
     return normalize(clips_u8)

@@ -16,6 +16,17 @@
 
 Features and distance matrices stay on the device; only the CMC curve and
 mAP come back to the host.
+
+Under a data-parallel group (``mesh``, with ``evaluate(multihost=...)``)
+each rank describes its contiguous stripe of each catalog
+(``get_data(eval_stripe=True)``), and ``gather_striped_rows`` assembles
+the features in catalog order on every rank. In eval mode a clip's
+descriptor depends on no other clip, so the assembled features are those
+of one process describing the whole catalog, which is also what grl_tpu's
+one-process mesh gives. From there every rank runs the one-card path on
+the whole features: the distances, re-ranking (the min-plus kernel
+launches once per rank; grl_tpu row-shards it, which only adds memory past
+one card) and the protocol. Every rank returns the same rank-1 and mAP.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 
 from .. import resolve_device
 from ..data.transforms import normalize
+from ..parallel import gather_striped_rows
 from . import metrics
 from .rerank import re_ranking, warn_if_degenerate
 from .visualize import visualize_ranked_results
@@ -88,12 +100,14 @@ class EvalResult(NamedTuple):
 
 class Evaluator:
     def __init__(self, cnn, siamese, micro_batch=64, rerank=False, rerank_k1=20, rerank_k2=6,
-                 rerank_lambda=0.3, save_distmat=None, visual_dir=None, device=None):
+                 rerank_lambda=0.3, save_distmat=None, visual_dir=None, device=None, mesh=None):
         """``save_distmat``: an .npz path that each ``evaluate`` writes the
         final distance matrix to, with the ids (grl_tpu's keys);
         ``visual_dir``: a directory that each ``evaluate`` writes the ranked
-        strips of that matrix to."""
-        self.device = resolve_device(device)
+        strips of that matrix to; ``mesh``: a data-parallel group (the
+        module docstring), whose device the evaluator runs on."""
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.cnn = cnn.to(self.device).eval()
         self.siamese = siamese.to(self.device).eval()
         self.micro_batch = micro_batch
@@ -168,13 +182,28 @@ class Evaluator:
         return buf / torch.from_numpy(counts).to(self.device)[:, None]
 
     @torch.inference_mode()
-    def evaluate(self, query_loader, gallery_loader, cmc_topk=(1, 5, 10, 20)):
+    def evaluate(self, query_loader, gallery_loader, cmc_topk=(1, 5, 10, 20), multihost=None):
         """Full retrieval protocol; prints the reference-format report and
-        returns an :class:`EvalResult`."""
+        returns an :class:`EvalResult`.
+
+        ``multihost``: ``{"query": (n_total, pids, camids), "gallery": ...}``
+        of the whole catalogs (``parallel.eval_catalog_meta``), when the
+        loaders hold this rank's stripe (``parallel.stripe_catalog``); needs
+        ``mesh``."""
+        if multihost is not None and self.mesh is None:
+            raise ValueError("multihost evaluation requires a mesh")
         t0 = time.time()
-        qf, q_pids, q_camids = self.extract_features(query_loader)
+
+        def fetch(loader, split):
+            feats, pids, camids = self.extract_features(loader)
+            if multihost is None:
+                return feats, pids, camids
+            n_total, pids, camids = multihost[split]
+            return gather_striped_rows(feats, n_total, self.mesh), np.asarray(pids), np.asarray(camids)
+
+        qf, q_pids, q_camids = fetch(query_loader, "query")
         print(f"Done, obtained {qf.shape[0]}-by-{qf.shape[1]} matrix")
-        gf, g_pids, g_camids = self.extract_features(gallery_loader)
+        gf, g_pids, g_camids = fetch(gallery_loader, "gallery")
         # the gallery includes the queries, as the reference protocol has it
         gf = torch.cat([qf, gf])
         g_pids = np.append(q_pids, g_pids)
@@ -197,7 +226,9 @@ class Evaluator:
                 k1=self.rerank_k1, k2=self.rerank_k2, lambda_value=self.rerank_lambda,
             )
 
-        if self.save_distmat:
+        if self.save_distmat and multihost is not None:
+            print("--save-distmat skipped under multi-host; re-run on one process to save it")
+        elif self.save_distmat:
             np.savez(self.save_distmat, distmat=distmat.cpu().numpy(), q_pids=q_pids,
                      q_camids=q_camids, g_pids=g_pids, g_camids=g_camids, rerank=np.bool_(self.rerank))
             print(f"saved distance matrix to {self.save_distmat}")
@@ -205,7 +236,10 @@ class Evaluator:
         cmc_curve, mAP = metrics.evaluate_device(distmat, q_pids, g_pids, q_camids, g_camids)
         print_protocol(cmc_curve, mAP, cmc_topk)
         print("------------------")
-        if self.visual_dir:
+        if self.visual_dir and multihost is not None:
+            # each rank's loaders hold only its stripe of the catalogs
+            print("visualizations skipped under multi-host; re-run on one process for --visual")
+        elif self.visual_dir:
             q_items, g_items = eval_items(query_loader, gallery_loader)
             visualize_ranked_results(distmat.cpu().numpy(), q_items, g_items, self.visual_dir)
             print(f"saved ranked visualizations to {self.visual_dir}")

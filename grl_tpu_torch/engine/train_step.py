@@ -25,6 +25,19 @@ and momentum, as grl_tpu gives them; torch alone would leave their grad
 The train state holds the modules, the luts, the optimizer and a step
 counter; the step updates it in place and returns it with the metrics as
 0-d tensors on the state's device (never read back inside the step).
+
+Under a data-parallel group (``mesh``, ``parallel/mesh.py``) each rank
+holds a contiguous slice of the global batch, and the step computes what
+one card computes on the global batch: the CNN runs on the slice with
+global-batch BatchNorm (``nn/norm.py``); one differentiable all-gather in
+rank order gives every rank the CNN's outputs for the global batch, in
+grl_tpu's batch order; the heads and losses (:func:`heads_loss_fn`) then
+run unchanged on it, on every rank, with the global ids (gathered on the
+host). Each rank back-propagates ``loss / ranks``: the gather's backward
+sums every rank's copy of the loss, and the parameter gradients are then
+summed over the ranks, so CNN and head gradients both come out those of
+one card. Heads, luts and their BatchNorm statistics come out identical on
+every rank with no further traffic.
 """
 
 from __future__ import annotations
@@ -33,7 +46,10 @@ import numpy as np
 import torch
 from torch import nn
 
+import torch.distributed as dist
+
 from .. import losses, resolve_device
+from ..nn import GlobalBatchNorm, all_gather_rows
 from .optim import SGD, lr_mult_tree
 
 _TRIPLET = losses.TripletLoss("soft", True)
@@ -74,9 +90,22 @@ def grl_loss_fn(models, luts, clips, targets, *, rounds=None, oim_scalar=30.0, o
                 verif_weight=20.0):
     """Returns ``(total_loss, aux)``; aux carries the detached features for
     the lut updates and the metrics. ``targets`` lie on the clips' device;
-    ``rounds`` is ``losses.max_repeats`` of them, read on the host."""
-    b, t = clips.shape[:2]
+    ``rounds`` is ``losses.max_repeats`` of them, read on the host. The CNN
+    (``models["cnn"]``), then :func:`heads_loss_fn` on its outputs."""
     x_uncorr, x_corr = models["cnn"](clips)
+    return heads_loss_fn(models, luts, x_uncorr, x_corr, targets, rounds=rounds, oim_scalar=oim_scalar,
+                         oim_momentum=oim_momentum, verif_weight=verif_weight)
+
+
+def heads_loss_fn(models, luts, x_uncorr, x_corr, targets, *, rounds=None, oim_scalar=30.0, oim_momentum=0.5,
+                  verif_weight=20.0):
+    """The heads and the five loss terms on the CNN's outputs ``x_uncorr``
+    (b, C) and ``x_corr`` (b, t, C) of the whole batch: every term is a
+    function of the whole batch (the verification head scores every probe
+    against every gallery clip, the triplet mines over the batch, the OIM
+    means and lut updates run over its rows), so the group step gathers
+    the CNN's outputs before calling it."""
+    b, t = x_corr.shape[:2]
 
     # pair-interleaved verification targets
     tar_probe, tar_gallery = targets[0::2], targets[1::2]
@@ -141,17 +170,51 @@ def to_device(array, device):
     return t.to(device, non_blocking=True)
 
 
-def make_train_step(*, oim_scalar=30.0, oim_momentum=0.5, verif_weight=20.0, device=None):
+def _sum_gradients(params):
+    """Sum every parameter's gradient over the ranks, one reduction per dtype."""
+    by_dtype = {}
+    for p in params:
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def _require_global_batchnorm(cnn):
+    local = [name for name, m in cnn.named_modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm) and not isinstance(m, GlobalBatchNorm)]
+    if local:
+        raise ValueError(f"the group step needs parallel.sharded_train_state's state: cnn.{local[0]} "
+                         "normalizes with its rank's statistics alone")
+
+
+def make_train_step(*, oim_scalar=30.0, oim_momentum=0.5, verif_weight=20.0, device=None, mesh=None):
     """The train step ``(state, clips, targets, lr) -> (state, metrics)``.
 
     ``clips``: normalized float clips (b, t, h, w, 3) on ``device`` (default
     ``"cuda"``); ``targets``: the (b,) ids on the host, as the loader yields
     them (the lut updates' round counts come from them without a read-back).
+    With ``mesh`` they are this rank's slice of the global batch, the state
+    is ``parallel.sharded_train_state``'s (its CNN's BatchNorms global;
+    the first step checks) and the step is the group step of the module
+    docstring; the metrics are the global batch's, on every rank.
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
+    loss_kw = dict(oim_scalar=oim_scalar, oim_momentum=oim_momentum, verif_weight=verif_weight)
+    checked = mesh is None
 
     def step(state, clips, targets, lr):
+        nonlocal checked
+        if not checked:
+            _require_global_batchnorm(state.models["cnn"])
+            checked = True
         ids = torch.as_tensor(targets).cpu().to(torch.int64)  # a card tensor is read back
+        if mesh is not None:
+            ids = torch.from_numpy(mesh.gather_host(ids.numpy()))
         rounds = losses.max_repeats(ids)
         t = clips.shape[1]
         targets = to_device(ids, device)
@@ -161,14 +224,20 @@ def make_train_step(*, oim_scalar=30.0, oim_momentum=0.5, verif_weight=20.0, dev
         opt = state.optimizer
         opt.set_lr(lr)
         opt.zero_grad(set_to_none=True)
-        total, aux = grl_loss_fn(state.models, state.luts, clips, targets, rounds=rounds,
-                                 oim_scalar=oim_scalar, oim_momentum=oim_momentum,
-                                 verif_weight=verif_weight)
-        total.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:  # unreached by the loss: zero grad, as in grl_tpu
-                    p.grad = torch.zeros_like(p)
+        if mesh is None:
+            total, aux = grl_loss_fn(state.models, state.luts, clips, targets, rounds=rounds, **loss_kw)
+            total.backward()
+        else:
+            x_uncorr, x_corr = state.models["cnn"](clips)
+            total, aux = heads_loss_fn(state.models, state.luts, all_gather_rows(x_uncorr),
+                                       all_gather_rows(x_corr), targets, rounds=rounds, **loss_kw)
+            (total / mesh.size).backward()
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:  # unreached by the loss: zero grad, as in grl_tpu
+                p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            _sum_gradients(params)
         opt.step()
 
         # lut updates in the reference's backward order (video before frame)

@@ -10,6 +10,11 @@ do (a bias fused into ``F.conv2d``/``F.linear`` would round once). With no
 unchanged. Parameters stay fp32 either way, so state dicts, the weight
 bridge and checkpoints do not depend on the compute dtype.
 
+``GlobalBatchNorm`` (``nn/norm.py``) is the BatchNorm of a data-parallel
+group: train-mode statistics over the global batch, as grl_tpu's under a
+mesh; ``nn/distributed.py`` holds the collectives it and the group train
+step use.
+
 The norms compute in fp32 (or wider) and cast back to the input's dtype;
 ``F.normalize`` on a bf16 tensor would compute in bf16. ``sigmoid`` rounds
 where grl_tpu's does.
@@ -106,4 +111,8 @@ def l2_unit(x, dim):
     return (w / w.square().sum(dim=dim, keepdim=True).sqrt()).to(x.dtype)
 
 
-__all__ = ["Conv2d", "Linear", "Sigmoid", "conv2d", "l2_normalize", "l2_unit", "sigmoid"]
+from .distributed import all_gather_rows  # noqa: E402
+from .norm import GlobalBatchNorm, convert_global_batchnorm  # noqa: E402
+
+__all__ = ["Conv2d", "GlobalBatchNorm", "Linear", "Sigmoid", "all_gather_rows", "conv2d",
+           "convert_global_batchnorm", "l2_normalize", "l2_unit", "sigmoid"]

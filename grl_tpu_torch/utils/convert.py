@@ -1,6 +1,7 @@
 """Weight bridge: grl_tpu ``(params, state)`` trees -> a torch state_dict,
 grl_tpu's whole train state -> the port's ``TrainState``, and torchvision
-ImageNet ResNet-50 weights -> the port's trunk (3 or 6 input channels).
+ImageNet ResNet-50 weights -> the port's trunk (3 or 6 input channels),
+through ``utils/convert_torch.py``'s ``torch_to_pytree``.
 
 The port names its submodules after grl_tpu's param-tree keys
 (``backbone.base.layer1.0.conv1``, ``temporal_learning_block.fwd.atte.2``
@@ -96,31 +97,33 @@ def train_state_from_jax(tree, state):
 def load_imagenet_resnet50(trunk, flat):
     """Load torchvision ImageNet ``resnet50`` weights into ``trunk`` (a
     ``ResNetTrunk``) in place; the counterpart of
-    ``grl_tpu/utils/convert_torch.py::load_imagenet_resnet50``.
+    ``grl_tpu/utils/convert_torch.py::load_imagenet_resnet50``, and the same
+    steps: ``torch_to_pytree`` of ``flat`` (``fc.*`` dropped, and
+    ``num_batches_tracked``, which grl_tpu does not keep), ``merge_pytree``
+    onto the trunk's own trees, then back into the trunk.
 
     ``flat`` maps torchvision's state_dict names to numpy arrays (the npz
-    that ``python -m grl_tpu.utils.convert_torch`` writes). The trunk uses
-    torchvision's names and layouts, so each entry loads as it is: ``fc.*``
-    is dropped, ``num_batches_tracked`` too (grl_tpu keeps no such
-    counter), and a name the trunk lacks or a shape that differs raises.
-    A trunk whose conv1 takes k×3 input channels (``--use-flow``: 6) gets
-    the 3-channel kernel tiled k times along the input axis and divided by
-    k, as grl_tpu inflates it; a width that is not a multiple raises.
-    Returns ``trunk``."""
-    own = trunk.state_dict()
-    for key, value in flat.items():
-        if key.startswith("fc.") or key.endswith("num_batches_tracked"):
-            continue
-        if key not in own:
-            raise KeyError(f"{key!r} is not in the trunk")
-        value = np.asarray(value)
-        if key == "conv1.weight" and value.shape[1] != own[key].shape[1]:
-            tgt, src = own[key].shape[1], value.shape[1]
-            if tgt % src:
+    that ``python -m grl_tpu_torch.utils.convert_torch`` writes). A name the
+    trunk lacks or a shape that differs raises. A trunk whose conv1 takes
+    k×3 input channels (``--use-flow``: 6) gets the 3-channel kernel tiled
+    k times along the input axis and divided by k, as grl_tpu inflates it;
+    a width that is not a multiple raises. Returns ``trunk``."""
+    from .convert_torch import merge_pytree, torch_to_pytree
+
+    params, state = torch_to_pytree({k: v.detach().cpu().numpy() for k, v in trunk.state_dict().items()})
+    p, s = torch_to_pytree({k: v for k, v in flat.items() if not k.startswith("fc.")})
+    if "conv1" in p:
+        src, tgt = p["conv1"]["kernel"], params["conv1"]["kernel"].shape[2]  # HWIO
+        if tgt != src.shape[2]:
+            if tgt % src.shape[2]:
                 raise ValueError(f"trunk conv1 expects {tgt} input channels; cannot inflate the "
-                                 f"{src}-channel ImageNet kernel to a non-multiple")
-            value = np.tile(value, (1, tgt // src, 1, 1)) / (tgt // src)
-        if value.shape != tuple(own[key].shape):
-            raise ValueError(f"shape mismatch at {key}: {value.shape} vs {tuple(own[key].shape)}")
-        own[key].copy_(torch.from_numpy(value))
+                                 f"{src.shape[2]}-channel ImageNet kernel to a non-multiple")
+            p["conv1"]["kernel"] = np.tile(src, (1, 1, tgt // src.shape[2], 1)) / (tgt // src.shape[2])
+    try:
+        params, state = merge_pytree(params, p), merge_pytree(state, s)
+    except KeyError as e:
+        raise KeyError(f"{e.args[0]}: a weight of the npz is not in the trunk") from e
+    except ValueError as e:
+        raise ValueError(f"shape mismatch: {e}") from e
+    trunk.load_state_dict(state_dict_from_jax(params, state, trunk), strict=True)
     return trunk

@@ -217,12 +217,23 @@ def test_get_data_synthetic_and_sequence_equal_grl_tpu(tmp_path):
 @pytest.mark.parametrize("option,item", [("process_shard", 7), ("eval_stripe", 7), ("use_flow", None)],
                          ids=["process_shard-7", "eval_stripe-7", "use_flow-8"])
 def test_get_data_unported_options_name_their_roadmap_item(option, item):
-    """Multi-host sharding raises naming its ROADMAP item; ``use_flow`` off a
-    sequence dataset raises ``ValueError``, as grl_tpu's does."""
+    """The multi-host options, ported since (ROADMAP queue A, item 7), on
+    one process: ``process_shard`` gives grl_tpu's train loader (the whole
+    catalog, its epoch capped at the smallest shard: here the whole);
+    ``eval_stripe`` gives the whole eval catalogs, which are grl_tpu's
+    loaders without striping (grl_tpu pads its one stripe to a multiple of
+    its local devices, 8 virtual ones here; a port rank has one device).
+    ``use_flow`` off a sequence dataset raises ``ValueError``, as grl_tpu's
+    does."""
     if item is None:
         for fn in (get_data, j_get_data):
             with pytest.raises(ValueError, match="no optical-flow companions"):
                 fn("synthetic", **{option: True})
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        get_data("synthetic", **{option: True})
+    kw = dict(batch_size=4, seq_len=2, workers=2, dataset_kwargs=dict(seed=1))
+    ours = get_data("synthetic", **kw, **{option: True})
+    theirs = j_get_data("synthetic", **kw, **({option: True} if option == "process_shard" else {}))
+    assert ours[2].max_batches == theirs[2].max_batches
+    assert_same_batches(ours[2], theirs[2])
+    assert_same_batches(ours[3], theirs[3], n=2)
+    assert_same_batches(ours[4], theirs[4], n=2)

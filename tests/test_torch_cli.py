@@ -151,17 +151,22 @@ def test_validate_args_rejects_what_grl_tpu_rejects(extra):
 
 
 @pytest.mark.parametrize("module,extra,item", [
-    (t_train, ["--devices", "2"], 7),
+    (t_train, ["--devices", "2"], None), (t_eval, ["--devices", "2"], None),
     (t_train, ["-d", "ilidsvidsequence", "--use-flow"], None), (t_train, ["--visual", "1"], None),
     (t_eval, ["--visual-from", "dist.npz"], None),
-], ids=["devices", "use-flow", "visual", "visual-from"])
+], ids=["devices", "evaluate-devices", "use-flow", "visual", "visual-from"])
 def test_unported_flags_exit_naming_their_roadmap_item(module, extra, item):
-    """``--devices 2`` exits naming its ROADMAP item; the flags ported since
-    (``--use-flow`` on a sequence dataset, ``--visual``, ``--visual-from``)
-    pass ``validate_args``, as they pass grl_tpu's."""
+    """The flags ported since (``--devices 2``, ROADMAP queue A, item 7;
+    ``--use-flow`` on a sequence dataset, ``--visual``, ``--visual-from``)
+    pass ``validate_args``, as they pass grl_tpu's; ``--devices 2`` asks
+    for 2 ranks under ``--device cpu`` (the runs themselves are
+    ``tests/test_torch_parallel_cli.py``'s)."""
     if item is None:
         for m in (module, j_train if module is t_train else j_eval):
             m.validate_args(m.build_parser().parse_args(["--tiny"] + extra))
+        if "--devices" in extra:
+            args = module.build_parser().parse_args(["--tiny", "--device", "cpu"] + extra)
+            assert t_train.ranks_to_launch(args, None if module is t_eval else args.batch_size // 2) == 2
         return
     with pytest.raises(SystemExit, match=f"queue A, item {item}"):
         module.validate_args(module.build_parser().parse_args(["--tiny"] + extra))
