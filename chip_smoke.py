@@ -133,10 +133,29 @@ descriptor), with seeded random weights. Phases:
     one-card ``Evaluator`` (rank-1, mAP, distances within 1e-5), the
     min-plus kernel's launches counted around it. Then, in this process,
     ``dp_cli``: ``cli.train --devices 2`` on a one-card machine runs on one
-    card (grl_tpu's cap) and says so.
+    card (grl_tpu's cap) and says so;
+22. ``rerank_sharded`` and ``eval_sharded`` (after ``rerank_staged``), on
+    two gloo ranks that this script spawns on the one card (NCCL refuses
+    two ranks on one device; gloo takes CUDA tensors as they are):
+    ``rerank_sharded``: ``re_ranking(mesh=)``, the row-sharded staged
+    builder, on ``rerank_staged``'s features (n = 19960: 9980 rows of V
+    per rank, slabs of 8192 and 1788 rows), its result held to the
+    one-card staged builder's, each rank's peak memory beside the one-card
+    staged peak of the same run, each rank's launches and slab shapes,
+    each slab shape's kernel output held to the plain min-sum;
+    ``eval_sharded``: the slice's catalog at full width striped over the
+    two ranks and re-ranked through the sharded tail (``Evaluator(mesh=)``:
+    sharded distances, the row-sharded builder, the sharded protocol)
+    against the one-card ``Evaluator``;
+23. ``serve_devices`` (in ``serve``): ``serve --devices 2`` on the staged
+    daemon's artifact, index and capacity: on a one-card machine one rank
+    on the staged route, which says so; its re-ranked answers are the
+    staged daemon's.
 
-The kernel is also timed at the serve route's shape (32 x 11598 x 11598)
-and at one slab of the staged builder (1980 x 8192 x 19960).
+The kernel is also timed at the serve route's shape (32 x 11598 x 11598),
+at one slab of the staged builder (1980 x 8192 x 19960) and at the short
+slab that ends each rank's rows in ``rerank_sharded`` (1980 x 1788 x
+19960).
 
 The script runs under the CLIs' precision policy
 (``grl_tpu_torch.set_precision``: TF32 off in cuDNN and cuBLAS, bf16
@@ -158,8 +177,10 @@ import contextlib
 import copy
 import faulthandler
 import importlib.util
+import io
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -182,7 +203,7 @@ from grl_tpu_torch.data import jpeg
 from grl_tpu_torch.data.sampling import dense_indices
 from grl_tpu_torch.engine import (Evaluator, Trainer, grl_loss_fn, init_train_state,
                                   make_descriptor_fn, make_train_step, metrics, step_decay_lr)
-from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
+from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance, rerank_columns
 from grl_tpu_torch.engine import rerank as rerank_mod
 from grl_tpu_torch.engine.rerank import re_ranking, re_ranking_padded
 from grl_tpu_torch.nn import GlobalBatchNorm, convert_global_batchnorm
@@ -200,6 +221,11 @@ MARS_N = MARS_Q + MARS_Q + MARS_EXTRA_G  # 13290 rows of V
 STAGED_Q, STAGED_EXTRA_G = 1980, 16000
 STAGED_N = STAGED_Q + STAGED_Q + STAGED_EXTRA_G
 STAGED_SLAB_SHAPE = (STAGED_Q, 8192, STAGED_N)  # one min-plus slab of its loop
+STAGED_SEED = 19960  # its features' generator, which the sharded phase's ranks seed alike
+# the sharded phases: two gloo ranks on one card; each rank owns 9980 rows of
+# V at n = 19960, two min-plus slabs (8192 and 1788 rows)
+SHARDED_RANKS = 2
+SHARDED_TAIL_SLAB_SHAPE = (STAGED_Q, STAGED_N // SHARDED_RANKS - 8192, STAGED_N)
 # the serve daemon: 16 re-ranked queries padded to the artifact's 32-clip
 # batch, an index of MARS's 11310 items (11054 at start + 256 enrolled) in a
 # buffer of capacity + one 256-row enrollment block
@@ -248,6 +274,7 @@ FRAME = (256, 128)  # the reference's clip frames (config.py)
 # the CLI phases' working directories (``.gitignore`` lists build/)
 BUILD = Path(__file__).resolve().parent / "build"
 CLI_DIR = BUILD / "chip_cli"
+SHARDED_DIR = BUILD / "chip_sharded"
 SYNTH_IDS = 32  # train ids of the CLI phases' synthetic catalog (= the checkpoint's classes)
 CLI_TRAIN = ["-d", "synthetic", "--synthetic-ids", str(SYNTH_IDS), "-b", "16", "--rerank", "1",
              "--logs-dir", str(CLI_DIR)]
@@ -391,7 +418,8 @@ def phase_kernels(gen):
     del a, b, out, plain, via_cdist
     torch.cuda.empty_cache()
     by_shape = {what: kernel_time_at(shape, gen, max_mhz, sms)
-                for what, shape in (("serve_padded", SERVE_SHAPE), ("staged_slab", STAGED_SLAB_SHAPE))}
+                for what, shape in (("serve_padded", SERVE_SHAPE), ("staged_slab", STAGED_SLAB_SHAPE),
+                                    ("sharded_tail_slab", SHARDED_TAIL_SLAB_SHAPE))}
     return {
         "name": "minplus", "route": "cuda", "source": "grl_tpu_torch/csrc/minplus.cu",
         "replaces": "grl_tpu/ops/minplus.py:38", "shape": [m, n, k],
@@ -1784,15 +1812,25 @@ def memory_mark(device):
     return torch.cuda.memory_allocated()
 
 
-def phase_rerank_staged(gen, device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6144, force=False):
+def staged_features(device, q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6144):
+    """``rerank_staged``'s random unit features (queries, query ∪ gallery),
+    from a generator of their own: every process that calls this on one
+    kind of device gets the same ones."""
+    gen = torch.Generator(device=device).manual_seed(STAGED_SEED)
+    qf = unit_rows(q, dim, device, gen)
+    return qf, torch.cat([qf, unit_rows(extra_g, dim, device, gen)])  # gallery = query ∪ gallery
+
+
+def phase_rerank_staged(device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6144, force=False):
     """Re-ranking past the staged builder's cut (n = 19960 > 16384): the
     staged builder as ``re_ranking`` picks it, the one-program builder
     (``staged=False``) and the staged builder with the plain min-sum, on
     random unit features; each one's seconds, launches and peak memory.
-    ``force`` passes ``staged=True`` (a rehearsal below the cut)."""
+    ``force`` passes ``staged=True`` (a rehearsal below the cut). Returns
+    the launches, the staged builder's numbers, and its result (which
+    ``phase_sharded`` holds the row-sharded builder to)."""
     cuda = torch.device(device).type == "cuda"
-    qf = unit_rows(q, dim, device, gen)
-    gf = torch.cat([qf, unit_rows(extra_g, dim, device, gen)])  # gallery = query ∪ gallery
+    qf, gf = staged_features(device, q, extra_g, dim)
     n = q + gf.shape[0]
     if not force:
         check(n > 16384, f"n = {n} does not reach the staged builder")
@@ -1827,7 +1865,194 @@ def phase_rerank_staged(gen, device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, 
         check(one_info["launches"] == 1 and plain_info["launches"] == 0, "one-program / plain launches")
     check(err_one <= KERNEL_TOL, f"staged vs one-program builder: {err_one}")
     check(err_plain <= KERNEL_TOL, f"staged builder, kernel vs plain min-sum: {err_plain}")
-    return staged_info["launches"]
+    return staged_info["launches"], staged_info, staged
+
+
+def _gloo_rank(rank, job, payload, device, store_path, result_path):
+    """One rank of ``gloo_ranks``: the group, ``job(mesh, payload)``, its
+    result pickled to ``result_path``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(1)
+    store = torch.distributed.FileStore(store_path, SHARDED_RANKS)
+    torch.distributed.init_process_group("gloo", store=store, rank=rank, world_size=SHARDED_RANKS)
+    try:
+        set_precision()
+        result = job(parallel.Mesh(rank, SHARDED_RANKS, device, store=store), payload)
+        with open(result_path.format(rank=rank), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def gloo_ranks(job, payload, device="cuda:0", timeout=600):
+    """``job(mesh, payload)`` on ``SHARDED_RANKS`` new processes grouped
+    over gloo, every rank on ``device`` (NCCL refuses two ranks on one
+    card; gloo takes CUDA tensors as they are). Returns the ranks' results
+    in rank order; raises when a rank fails or at ``timeout``."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    SHARDED_DIR.mkdir(parents=True, exist_ok=True)
+    run = f"{os.getpid()}-{time.monotonic_ns()}"
+    store_path = str(SHARDED_DIR / f"store-{run}")
+    result_path = str(SHARDED_DIR / f"rank{{rank}}-{run}.pkl")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, job, payload, str(device), store_path, result_path))
+             for r in range(SHARDED_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 0))
+            check(p.exitcode is not None, f"gloo rank {p.name} did not finish in {timeout} s")
+            check(p.exitcode == 0, f"gloo rank {p.name} exited with {p.exitcode}")
+        out = []
+        for r in range(SHARDED_RANKS):
+            with open(result_path.format(rank=r), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        for p in procs:
+            if p.exitcode is None:
+                p.kill()
+                p.join()
+
+
+def sharded_rank_job(mesh, opts):
+    """The sharded phases' work on one rank (``phase_sharded``)."""
+    device = mesh.device
+    out = {"rank": mesh.rank, "mesh": repr(mesh), "backend": torch.distributed.get_backend()}
+
+    # rerank_sharded: rerank_staged's features, the row-sharded builder
+    qf, gf = staged_features(device, *opts["staged_shape"])
+    q = qf.shape[0]
+    slabs, slab_errs = [], {}
+
+    def checked(a, b):
+        """The kernel on one slab, each slab shape also held to the plain min-sum."""
+        s = ops.minplus(a, b)
+        slabs.append([a.shape[0], b.shape[0], b.shape[1]])
+        if b.shape[0] not in slab_errs:
+            slab_errs[b.shape[0]] = float((s - ops.minplus_plain(a, b)).abs().max())
+        return s
+
+    def run(min_sum_fn):
+        box = [rerank_columns(qf, gf, mesh)]
+        at_entry = memory_mark(device)
+        t0 = time.perf_counter()
+        dist = re_ranking(inputs_box=box, query_num=q, mesh=mesh, min_sum_fn=min_sum_fn)
+        sync(device)
+        return dist, {"seconds": time.perf_counter() - t0, "at_entry_gib": at_entry / 2**30,
+                      "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None}
+
+    checked_dist = run(checked)[0].cpu()
+    torch.distributed.barrier()
+    zero_launches()
+    dist, info = run(ops.minplus)
+    info["launches"] = read_launches()["minplus"]
+    one_card = torch.from_numpy(np.load(opts["staged_path"])).to(device)
+    out["rerank"] = {**info, "slabs": slabs, "slab_vs_plain_max_abs_err": slab_errs,
+                     "vs_one_card_max_abs_diff": float((dist - one_card).abs().max()),
+                     "checked_run_vs_one_card_max_abs_diff": float((checked_dist.to(device) - one_card).abs().max()),
+                     "finite": bool(torch.isfinite(dist).all()), "shape": list(dist.shape),
+                     "rows": list(parallel.row_block(q + gf.shape[0], mesh))}
+    del qf, gf, dist, one_card, checked_dist
+    empty_cache(device)
+
+    # eval_sharded: the slice's catalog striped over the ranks, the tail sharded
+    frame, tiny = tuple(opts["frame"]), opts["tiny"]
+    cnn, sia, unc = dp_modules(device, tiny)
+    if mesh.rank == 0:
+        gen = torch.Generator(device=device).manual_seed(8)
+        calibrate_grl(cnn, sia, unc, torch.randint(0, 256, (4, 8, *frame, 3), dtype=torch.uint8, device=device,
+                                                   generator=gen))
+    for m in (cnn, sia):
+        parallel.replicate(m, mesh)  # rank 0's calibrated statistics on every rank
+    ev = SyntheticVideoReID(num_train_ids=0, num_test_ids=24, tracklets_per_id=2, num_cams=2, frames_range=(8, 40),
+                            height=frame[0], width=frame[1], seed=0)
+    dense = lambda items: ClipLoader(ClipDataset(items, 8, "dense", *frame), batch_size=1, workers=4)
+    if mesh.rank == 0:
+        one = Evaluator(cnn, sia, micro_batch=32, rerank=True, device=device).evaluate(dense(ev.query),
+                                                                                      dense(ev.gallery))
+        out["one_card"] = {"distmat": one.distmat.cpu().numpy(), "rank1": float(one.cmc[0]), "mAP": one.mAP}
+    meta = {"query": parallel.eval_catalog_meta(ev.query), "gallery": parallel.eval_catalog_meta(ev.gallery)}
+    stripes = [parallel.stripe_catalog(items, mesh.rank, mesh.size)[0] for items in (ev.query, ev.gallery)]
+    torch.distributed.barrier()  # both ranks start together (rank 0 ran the one-card evaluation)
+    zero_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    res = Evaluator(cnn, sia, micro_batch=32, rerank=True, device=device, mesh=mesh).evaluate(
+        dense(stripes[0]), dense(stripes[1]), multihost=meta)
+    sync(device)
+    out["evaluate"] = {"seconds": time.perf_counter() - t0, "launches": read_launches()["minplus"],
+                       "distmat": res.distmat.cpu().numpy(), "rank1": float(res.cmc[0]), "mAP": res.mAP,
+                       "query": len(ev.query), "gallery": len(ev.gallery), "stripe": len(stripes[0])}
+    return out
+
+
+def slab_bounds(shape):
+    """The data-sheet bound of one min-plus slab ``(m, n, k)``: ``(ms, by)``."""
+    m, n, k = shape
+    ops_ms = 2.0 * m * n * k / PEAK_FP32_OPS * 1e3
+    bytes_ms = 4.0 * (m * k + n * k + m * n) / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_sharded(staged, staged_info, device="cuda", staged_shape=(STAGED_Q, STAGED_EXTRA_G, 6144), frame=FRAME,
+                  tiny=False):
+    """``rerank_sharded`` and ``eval_sharded``: two gloo ranks on this card
+    (``gloo_ranks``). ``rerank_sharded``: the row-sharded builder on
+    ``rerank_staged``'s features, held to the one-card staged result
+    ``staged``, each rank's peak memory beside the one-card staged peak,
+    its launches and slab shapes, each slab shape held to the plain
+    min-sum. ``eval_sharded``: the slice's catalog striped over the ranks
+    and re-ranked through the sharded tail against one card. Returns the
+    launches of each path, by rank."""
+    cuda = torch.device(device).type == "cuda"
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    SHARDED_DIR.mkdir(parents=True)
+    staged_path = str(SHARDED_DIR / "staged.npy")
+    np.save(staged_path, staged.cpu().numpy())
+    t0 = time.perf_counter()
+    ranks = gloo_ranks(sharded_rank_job, {"staged_path": staged_path, "staged_shape": list(staged_shape),
+                                          "frame": list(frame), "tiny": tiny}, "cuda:0" if cuda else "cpu")
+    seconds = time.perf_counter() - t0
+    n = staged_shape[0] * 2 + staged_shape[1]
+    rr = [r["rerank"] for r in ranks]
+    shapes = sorted({tuple(s) for r in rr for s in r["slabs"]}, reverse=True)
+    log("rerank_sharded", ranks=SHARDED_RANKS, mesh=[r["mesh"] for r in ranks], backend=ranks[0]["backend"], n=n,
+        by_rank=[{k: v for k, v in r.items() if k != "slabs"} for r in rr],
+        slab_shapes_by_rank=[r["slabs"] for r in rr],
+        slab_bounds={"x".join(map(str, s)): dict(zip(("bound_ms", "bound_by"), slab_bounds(s))) for s in shapes},
+        one_card_staged_peak_gib=staged_info["peak_gib"],
+        peak_ratio=[r["peak_gib"] / staged_info["peak_gib"] for r in rr] if cuda else None,
+        one_card_staged_seconds=staged_info["seconds"], phase_seconds=seconds, tol=KERNEL_TOL)
+    for r in rr:
+        check(r["finite"] and r["shape"] == list(staged.shape), f"sharded result {r['shape']}, finite {r['finite']}")
+        for what in ("vs_one_card_max_abs_diff", "checked_run_vs_one_card_max_abs_diff"):
+            check(r[what] <= KERNEL_TOL, f"row-sharded vs one-card staged builder, {what}: {r[what]}")
+        check(max(r["slab_vs_plain_max_abs_err"].values()) <= KERNEL_TOL,
+              f"min-plus slab vs plain min-sum: {r['slab_vs_plain_max_abs_err']}")
+        if cuda:
+            check(r["launches"] == len(r["slabs"]) >= 1, f"rank launches {r['launches']}, slabs {len(r['slabs'])}")
+            check(r["peak_gib"] < staged_info["peak_gib"],
+                  f"rank peak {r['peak_gib']:.3f} GiB not below the one-card staged peak {staged_info['peak_gib']:.3f}")
+
+    one = ranks[0]["one_card"]
+    ev = [r["evaluate"] for r in ranks]
+    errs = [float(np.abs(e["distmat"] - one["distmat"]).max()) for e in ev]
+    log("eval_sharded", ranks=SHARDED_RANKS, query=ev[0]["query"], gallery=ev[0]["gallery"],
+        stripe=[e["stripe"] for e in ev], seconds=[e["seconds"] for e in ev], launches=[e["launches"] for e in ev],
+        rank1=[e["rank1"] for e in ev], mAP=[e["mAP"] for e in ev], one_card_rank1=one["rank1"],
+        one_card_mAP=one["mAP"], distmat_max_abs_diff=errs, tol=KERNEL_TOL)
+    for e, err in zip(ev, errs):
+        check(np.isfinite(e["distmat"]).all() and err <= KERNEL_TOL, f"sharded evaluation distmat vs one card: {err}")
+        check(e["rank1"] == one["rank1"] and abs(e["mAP"] - one["mAP"]) <= KERNEL_TOL,
+              f"sharded rank-1/mAP {e['rank1']}/{e['mAP']} vs one card {one['rank1']}/{one['mAP']}")
+        if cuda:
+            check(e["launches"] >= 1, f"min-plus launches on a rank of the sharded evaluation: {e['launches']}")
+    return {"rerank_sharded": [r["launches"] for r in rr], "eval_sharded": [e["launches"] for e in ev]}
 
 
 def extract_main(argv, device):
@@ -2037,6 +2262,7 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
         ping_staged = c.ping()
         check(ping_staged["rerank_staged"] and ping_staged["gallery"] == geo["capacity"], f"ping {ping_staged}")
         rr_staged = routes(c, staged)
+    devices = serve_devices(common, geo, queries, k, device, sock, rr_staged)
 
     # references on the device, from each daemon's own distance matrices
     # (the query-gallery block is a squared cosine distance, whose smallest
@@ -2091,7 +2317,60 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
         slabs = -(-(b + geo["staged_capacity"] + 256) // rerank_mod._MINPLUS_CHUNK)
         check(padded["launches"] == 1, f"padded route launched the kernel {padded['launches']} times")
         check(staged["launches"] == slabs, f"staged route launched {staged['launches']}, expected {slabs}")
-    return {"serve_padded": padded["launches"], "serve_staged": staged["launches"]}
+    return {"serve_padded": padded["launches"], "serve_staged": staged["launches"],
+            "serve_devices": devices["launches"]}
+
+
+class Tee(io.TextIOBase):
+    """Writes to ``stream`` and keeps a copy (a daemon's stderr, read back)."""
+
+    def __init__(self, stream):
+        self.stream, self.copy = stream, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def serve_devices(common, geo, queries, k, device, sock, rr_staged):
+    """``serve_devices``: ``serve --devices 2`` on the staged daemon's
+    artifact, index and capacity. On a one-card machine it runs one rank on
+    the staged route and says so on stderr; its re-ranked answers are the
+    staged daemon's. Launch counts zeroed just before its re-ranked request
+    and read just after."""
+    cuda = torch.device(device).type == "cuda"
+    info = {}
+    tee = Tee(sys.stderr)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(tee), daemon(["--gallery", str(SERVE_DIR / "index.npz"), "--capacity",
+                                                  str(geo["staged_capacity"]), *common, "--devices", "2"],
+                                                 device, sock) as c:
+        info["ready_s"] = time.perf_counter() - t0
+        ping = c.ping()
+        zero_launches()
+        sync(device)
+        rr = c.rank(features=queries, topk=k, rerank=True)
+        sync(device)
+        info["launches"] = read_launches()["minplus"]
+        info["rerank_ms"] = median_ms(lambda: c.rank(features=queries, topk=k, rerank=True), reps=3)
+    said = [ln for ln in tee.copy.getvalue().splitlines() if ln.startswith("--devices 2:")]
+    idx, scores = answer(rr)
+    visible = parallel.visible_devices(device)
+    info.update(rerank_devices=ping["rerank_devices"], rerank_staged=ping["rerank_staged"], said=said,
+                visible_devices=visible, matches_equal_staged=bool(np.array_equal(idx, rr_staged[0])),
+                vs_staged_max_abs_diff=float(np.abs(scores - rr_staged[1]).max()))
+    log("serve_devices", **info, tol=KERNEL_TOL)
+    check(rr["reranked"] and ping["rerank_staged"], f"serve --devices 2: {ping}")
+    check(info["matches_equal_staged"] and info["vs_staged_max_abs_diff"] <= KERNEL_TOL,
+          f"serve --devices 2 vs the staged route: {info['vs_staged_max_abs_diff']}")
+    if cuda and visible == 1:
+        check(ping["rerank_devices"] == 1 and said, f"serve --devices 2 on one card: {ping}, said {said}")
+        slabs = -(-(geo["batch"] + geo["staged_capacity"] + 256) // rerank_mod._MINPLUS_CHUNK)
+        check(info["launches"] == slabs, f"serve --devices 2 launched {info['launches']}, expected {slabs}")
+    return info
 
 
 def phase_cli_bf16(gen, device="cuda", extra=(), geo=SERVE):
@@ -2269,7 +2548,10 @@ def main():
     torch.cuda.empty_cache()
     phase_flow_models(gen)
     torch.cuda.empty_cache()
-    staged_launches = phase_rerank_staged(gen)
+    staged_launches, staged_info, staged = phase_rerank_staged()
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(staged, staged_info)
+    del staged
     torch.cuda.empty_cache()
     serve_launches = phase_serve(gen)
     torch.cuda.empty_cache()
@@ -2277,9 +2559,9 @@ def main():
     torch.cuda.empty_cache()
     bf16_launches = phase_cli_bf16(gen)
 
-    # launches on this slice's path (``cli.evaluate --use-flow --rerank 1``);
-    # every other path's count beside it
-    entry["launches"] = flow_launches["evaluate"]
+    # launches on this slice's path (the sharded evaluation, summed over its
+    # two ranks); every other path's count beside it
+    entry["launches"] = sum(sharded_launches["eval_sharded"])
     entry["launches_by_path"] = {"evaluate": launches["minplus"], "train": train_launches["minplus"],
                                  "cli_train": cli_train_launches["minplus"],
                                  "cli_evaluate": cli_eval_launches["minplus"],
@@ -2289,7 +2571,9 @@ def main():
                                  "cli_bf16_train": bf16_launches["train"],
                                  "cli_bf16_evaluate": bf16_launches["evaluate"],
                                  "flow_train": flow_launches["train"], "flow_evaluate": flow_launches["evaluate"],
-                                 "flow_rank_cli": flow_rank_launches, "dp_evaluate": dp_launches}
+                                 "flow_rank_cli": flow_rank_launches, "dp_evaluate": dp_launches,
+                                 **{path: sum(n) for path, n in sharded_launches.items()}}
+    entry["launches_by_rank"] = sharded_launches
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [entry]}))

@@ -31,8 +31,11 @@ in its meta), which ``describe`` and ``serve`` then take and which refuse
 3-channel clips. ``features --devices N`` (default 0: every visible card)
 describes the split on one rank per card (N gloo ranks under ``--device
 cpu``), each its stripe, and rank 0 writes the assembled rows in catalog
-order. ``serve --devices`` above 1 (grl_tpu row-shards the re-ranking)
-is not ported yet and exits naming ROADMAP queue A, item 7.
+order. ``serve --devices N`` re-ranks on N ranks (one per card; N gloo
+ranks under ``--device cpu``) through the row-sharded staged builder: this
+process is rank 0 and owns the socket, the others are started beside it
+(or all come from ``torchrun``) and take their share of each re-ranked
+request; on one card it runs one rank on the staged route and says so.
 
 ``rank`` does NOT prepend queries to the gallery and does not junk-filter:
 it is retrieval, not CMC.
@@ -46,33 +49,29 @@ import io
 import json
 import os
 import os.path as osp
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import parallel, resolve_device, set_precision
 from ..config import ExperimentConfig
 from ..data import get_data
 from ..engine import Evaluator, init_train_state
-from ..engine.evaluator import _euclidean, cosine_distance, make_descriptor_fn
+from ..engine.evaluator import _euclidean, cosine_distance, make_descriptor_fn, rerank_columns
 from ..engine.rerank import re_ranking, re_ranking_padded, top_k, warn_if_degenerate
 from ..utils import load_train_state
-from .train import _not_ported, _synthetic_kwargs, build_models, eval_meta, ranks_to_launch, say_one_device
+from .train import _synthetic_kwargs, build_models, eval_meta, ranks_to_launch, say_one_device
 
 # serve's rerank takes the one-program capacity-padded builder up to this
 # many total items (padded queries + capacity + enrollment block), the staged
 # memory-lean builder past it. grl_tpu's cut; module-level so tests can
 # shrink it to drive the staged route at toy n.
 _RERANK_ONEJIT_MAX = 16384
+_ADD_BLOCK = 256  # serve's enrollment granularity
 # torch.export.save writes a zip archive; jax.export blobs are flatbuffers
 _ZIP_MAGIC = b"PK\x03\x04"
-
-
-def _reject_unported(args):
-    """What the port does not have yet exits naming its ROADMAP item:
-    ``serve --devices`` above 1 (grl_tpu row-shards the re-ranking)."""
-    if args.command == "serve" and getattr(args, "devices", 1) > 1:
-        _not_ported("--devices above 1", 7, "row-sharded re-ranking over several cards")
 
 
 def _load_models(args, num_classes, device):
@@ -425,6 +424,137 @@ def describe_with_export(args):
     return feats.shape
 
 
+def _open_index(args, meta, device):
+    """serve's gallery index on ``device``, or None without ``--gallery`` or
+    ``--capacity``: the features in a buffer of capacity + one enrollment
+    block of rows (zeros past the valid count), with the labels and the
+    re-ranked query width ``q_pad``."""
+    if not (args.gallery or args.capacity):
+        return None
+    if args.topk < 1:
+        raise SystemExit("serve --topk must be >= 1 (the top-k width of every answer)")
+    if args.capacity < 0:
+        raise SystemExit("serve --capacity must be >= 0")
+    if args.gallery:
+        g = np.load(args.gallery)
+        feats = g["features"]
+        if feats.ndim != 2 or feats.shape[1] != meta["dim"]:
+            raise SystemExit(
+                f"gallery features are shaped {feats.shape} but the "
+                f"artifact produces {meta['dim']}-d descriptors"
+            )
+        if feats.shape[0] == 0 and not args.capacity:
+            raise SystemExit(f"gallery index {args.gallery} is empty")
+        # an unlabeled index still ranks (labels report as -1)
+        labels = {
+            k: (np.asarray(g[k]) if k in g.files
+                else np.full(feats.shape[0], -1, np.int64))
+            for k in ("pids", "camids")
+        }
+    else:  # enroll-from-scratch index
+        feats = np.zeros((0, meta["dim"]), np.float32)
+        labels = {k: np.zeros(0, np.int64) for k in ("pids", "camids")}
+    n0 = feats.shape[0]
+    capacity = max(args.capacity, n0)
+    # one spare enrollment block, so a fixed-width block never runs past
+    # the buffer
+    buf = torch.zeros((capacity + _ADD_BLOCK, meta["dim"]), dtype=torch.float32, device=device)
+    buf[:n0] = torch.from_numpy(np.asarray(feats, np.float32))
+    if args.rerank_queries < 1:
+        raise SystemExit("serve --rerank-queries must be >= 1")
+    # the rerank geometry is fixed at startup: queries pad to a fixed
+    # width, the index to its buffer
+    q_pad = meta["batch"] * -(-args.rerank_queries // meta["batch"])
+    return {"n": n0, "capacity": capacity, "gf": buf, "pids": labels["pids"], "camids": labels["camids"],
+            "q_pad": q_pad}
+
+
+class _RerankGroup:
+    """``serve --devices``' re-ranked requests over the group. For each one
+    rank 0 posts a header on the rendezvous store (the op, the valid query
+    and index counts, and how far the peers' index copies reach), where the
+    peers wait with no deadline between requests; then it broadcasts the
+    index rows enrolled since the last request and the padded query
+    features, and every rank runs ``re_ranking(mesh=)`` on its rows. Every
+    rank's index thus takes rank 0's rows, in order, before its block is
+    built. ``stop`` ends the peers' loop."""
+
+    def __init__(self, mesh, index):
+        self.mesh, self.index = mesh, index
+        self.seq = 0
+        self.synced = index["n"]  # the index rows every rank holds
+
+    def _key(self):
+        return f"grl_tpu_torch:serve:{self.seq}"
+
+    def _post(self, head):
+        self.mesh.store.set(self._key(), json.dumps(head))
+        self.seq += 1
+
+    def receive(self):
+        """The next header (a peer's wait: an hour at a time, for ever)."""
+        key = self._key()
+        while True:
+            try:
+                self.mesh.store.wait([key], timedelta(hours=1))
+                break
+            except RuntimeError as e:
+                if "timeout" not in str(e).lower():
+                    raise
+        self.seq += 1
+        return json.loads(self.mesh.store.get(key))
+
+    def rerank(self, qf, n_q):
+        """Rank 0: one request's re-ranked (q_pad, G) distances."""
+        self._post({"op": "rerank", "nq": n_q, "n": self.index["n"], "synced": self.synced})
+        return self._run(qf, n_q, self.synced, self.index["n"])
+
+    def follow(self):
+        """A peer: take part in requests until rank 0 stops; returns how many."""
+        served = 0
+        while (head := self.receive())["op"] == "rerank":
+            qf = torch.empty((self.index["q_pad"], self.index["gf"].shape[1]), device=self.index["gf"].device)
+            self._run(qf, head["nq"], head["synced"], head["n"])
+            self.index["n"] = head["n"]
+            served += 1
+        return served
+
+    def _run(self, qf, n_q, synced, n):
+        gf = self.index["gf"]
+        if n > synced:
+            dist.broadcast(gf[synced:n], src=0)
+        self.synced = n
+        dist.broadcast(qf, src=0)
+        return re_ranking(inputs_box=[rerank_columns(qf, gf, self.mesh)], query_num=qf.shape[0],
+                          valid=(n_q, n), mesh=self.mesh)
+
+    def stop(self):
+        self._post({"op": "stop"})
+
+
+def _serve_peer(args):
+    """Ranks 1 and on of ``serve --devices``: the same index as rank 0's,
+    and their share of every re-ranked request until rank 0 stops the
+    group. SIGTERM and SIGINT are rank 0's to act on: a peer leaves when
+    rank 0's stop reaches it (or with rank 0's process)."""
+    import signal
+    import sys
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, signal.SIG_IGN)
+    mesh = parallel.current_mesh()
+    with np.load(args.model, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+    idx = _open_index(args, meta, mesh.device)
+    if idx is None:
+        return 0
+    with torch.inference_mode():
+        served = _RerankGroup(mesh, idx).follow()
+    print(f"serve rank {mesh.rank} of {mesh.size}: stopped by rank 0 after {served} re-ranked requests",
+          file=sys.stderr)
+    return served
+
+
 def serve(args, inp=None, out=None):
     """Persistent descriptor/retrieval daemon over an ``export-model``
     artifact (grl_tpu's ``serve``, same protocol and response keys).
@@ -456,7 +586,13 @@ def serve(args, inp=None, out=None):
     ``--rerank-queries`` (rounded up to the batch) and re-ranks against the
     whole buffer with the valid counts: through ``re_ranking_padded`` up to
     ``_RERANK_ONEJIT_MAX`` total items, through the staged builder with
-    ``valid`` above it; both end in the min-plus kernel on the card.
+    ``valid`` above it; both end in the min-plus kernel on the card. With
+    ``--devices`` above 1 it always takes the staged route, row-sharded
+    over the group when the group has more than one rank
+    (``_RerankGroup``): this process is rank 0 and owns the transport,
+    describe, plain rank and enrollment; the other ranks
+    (``_serve_peer``) hold the same index and take their share of each
+    re-ranked request.
 
     A malformed request gets ``{"ok": false, "error": ...}`` and the loop
     goes on; request lines are capped at ``--max-request-mb`` (an oversize
@@ -472,58 +608,38 @@ def serve(args, inp=None, out=None):
 
     inp = inp if inp is not None else sys.stdin
     out = out if out is not None else sys.stdout
-    _reject_unported(args)
-    device = resolve_device(args.device)
+    mesh = parallel.maybe_initialize_distributed(args.device)
+    if mesh is None and args.devices > 1:
+        n = parallel.auto_mesh(limit=args.devices, device=args.device)
+        if n > 1:
+            # this process is rank 0 (stdin, the socket, signals); the peers
+            # start beside it
+            return parallel.launch(_serve_peer, args, n, args.device, here=lambda: serve(args, inp, out))[0]
+        print(f"--devices {args.devices}: running on one {args.device} device "
+              f"({parallel.visible_devices(args.device)} visible); re-ranking on the staged route",
+              file=sys.stderr)
+    if mesh is not None and mesh.rank > 0:
+        return _serve_peer(args)
+    device = resolve_device(args.device) if mesh is None else mesh.device
 
     call, meta = _load_artifact(args.model, device)
     # every clip-describe site (describe/add/rank) funnels through the
     # coalescer: concurrent connections' clips share device dispatches
     coalescer = _DescribeCoalescer(call, meta["batch"])
-    idx = None
+    idx = _open_index(args, meta, device)
     rerank_unavailable, q_pad = "rank needs serve --gallery or --capacity", 0
-    rr_staged = False
+    rr_staged, group = False, None
     k_max = 0
-    ADD_BLOCK = 256  # fixed enrollment granularity
-    if args.gallery or args.capacity:
-        if args.topk < 1:
-            raise SystemExit("serve --topk must be >= 1 (the top-k width of every answer)")
-        if args.capacity < 0:
-            raise SystemExit("serve --capacity must be >= 0")
-        if args.gallery:
-            g = np.load(args.gallery)
-            feats = g["features"]
-            if feats.ndim != 2 or feats.shape[1] != meta["dim"]:
-                raise SystemExit(
-                    f"gallery features are shaped {feats.shape} but the "
-                    f"artifact produces {meta['dim']}-d descriptors"
-                )
-            if feats.shape[0] == 0 and not args.capacity:
-                raise SystemExit(f"gallery index {args.gallery} is empty")
-            # an unlabeled index still ranks (labels report as -1)
-            labels = {
-                k: (np.asarray(g[k]) if k in g.files
-                    else np.full(feats.shape[0], -1, np.int64))
-                for k in ("pids", "camids")
-            }
-        else:  # enroll-from-scratch index
-            feats = np.zeros((0, meta["dim"]), np.float32)
-            labels = {k: np.zeros(0, np.int64) for k in ("pids", "camids")}
-        n0 = feats.shape[0]
-        capacity = max(args.capacity, n0)
-        # one spare ADD_BLOCK, so a fixed-width enrollment block never runs
-        # past the buffer
-        buf = torch.zeros((capacity + ADD_BLOCK, meta["dim"]), dtype=torch.float32, device=device)
-        buf[:n0] = torch.from_numpy(np.asarray(feats, np.float32))
-        idx = {"n": n0, "capacity": capacity, "gf": buf,
-               "pids": labels["pids"], "camids": labels["camids"]}
-        k_max = min(args.topk, capacity)  # capacity >= 1 here
-        if args.rerank_queries < 1:
-            raise SystemExit("serve --rerank-queries must be >= 1")
-        # the rerank geometry is fixed at startup: queries pad to a fixed
-        # width, the index to its buffer
-        q_pad = meta["batch"] * -(-args.rerank_queries // meta["batch"])
+    if idx is not None:
+        k_max = min(args.topk, idx["capacity"])  # capacity >= 1 here
+        q_pad = idx["q_pad"]
         rerank_unavailable = None
-        rr_staged = q_pad + buf.shape[0] > _RERANK_ONEJIT_MAX
+        # --devices above 1 re-ranks through the staged builder, row-sharded
+        # over the group when it has more than one rank (grl_tpu: a mesh
+        # forces the staged route)
+        rr_staged = args.devices > 1 or q_pad + idx["gf"].shape[0] > _RERANK_ONEJIT_MAX
+        if mesh is not None:
+            group = _RerankGroup(mesh, idx)
 
     def rank_topk_feats(qf, n_valid):
         # scores: cosine similarity (the rank subcommand's negative-distance
@@ -547,13 +663,13 @@ def serve(args, inp=None, out=None):
                 f"index at {n}/{idx['capacity']}: adding {n_add} exceeds "
                 "capacity — restart serve with a larger --capacity"
             )
-        for i in range(0, n_add, ADD_BLOCK):
-            block = feats[i : i + ADD_BLOCK]
-            if block.shape[0] < ADD_BLOCK:  # zero-pad: rows past the new
-                block = np.concatenate(    # count stay masked out of rank
-                    [block, np.zeros((ADD_BLOCK - block.shape[0], block.shape[1]), np.float32)]
+        for i in range(0, n_add, _ADD_BLOCK):
+            block = feats[i : i + _ADD_BLOCK]
+            if block.shape[0] < _ADD_BLOCK:  # zero-pad: rows past the new
+                block = np.concatenate(     # count stay masked out of rank
+                    [block, np.zeros((_ADD_BLOCK - block.shape[0], block.shape[1]), np.float32)]
                 )
-            idx["gf"][n + i : n + i + ADD_BLOCK] = torch.from_numpy(block).to(device)
+            idx["gf"][n + i : n + i + _ADD_BLOCK] = torch.from_numpy(block).to(device)
         idx["n"] = n + n_add
         idx["pids"] = np.concatenate([idx["pids"], pids])
         idx["camids"] = np.concatenate([idx["camids"], camids])
@@ -590,6 +706,8 @@ def serve(args, inp=None, out=None):
         The one-program padded builder below _RERANK_ONEJIT_MAX total items,
         the staged builder (same padding convention) above it."""
         n = idx["n"]
+        if group is not None:
+            return group.rerank(qf, n_q)
         if rr_staged:
             # gg is not cached on this route: the staged builder frees the
             # distance matrices after its first stage
@@ -658,7 +776,8 @@ def serve(args, inp=None, out=None):
                 "rerank_queries": q_pad if (idx is not None and not rerank_unavailable) else 0,
                 # which builder answers rerank requests
                 "rerank_staged": bool(idx is not None and rr_staged),
-                "rerank_devices": 1,
+                # ranks the n² re-ranking is row-sharded over
+                "rerank_devices": mesh.size if idx is not None and mesh is not None else 1,
             }
         if op == "stats":
             # per-op counters + latency aggregates (request wall time incl.
@@ -1009,6 +1128,8 @@ def serve(args, inp=None, out=None):
     try:
         return serve_transport()
     finally:
+        if group is not None:
+            group.stop()
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
         # unblock the signal waiter (os.read returns b"" on writer close) and
@@ -1136,8 +1257,10 @@ def build_parser():
                         "rerank; the min-plus kernel's build) before "
                         "accepting requests")
     s.add_argument("--devices", type=int, default=1,
-                   help="cards to row-shard the rerank set algebra over; above 1 "
-                        "is not ported yet (ROADMAP queue A, item 7)")
+                   help="row-shard the n^2 rerank set algebra over this many ranks, one per "
+                        "card (capped at the visible cards; with --device cpu, gloo ranks); "
+                        "above 1 forces the staged builder. This process is rank 0 and "
+                        "describes on its card alone")
     s.add_argument("--listen", type=str, default="",
                    help="serve over a socket instead of stdin/stdout: "
                         "'host:port' (port 0 picks one; the bound address "

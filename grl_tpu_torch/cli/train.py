@@ -71,11 +71,6 @@ def build_models(args, tiny=False):
     return cnn, siamese, siamese_uncorr
 
 
-def _not_ported(flag, item, what):
-    raise SystemExit(f"{flag} is not ported to grl_tpu_torch yet: {what} comes with "
-                     f"ROADMAP queue A, item {item}; grl_tpu (the JAX package) has it")
-
-
 def validate_args(args):
     """Reject what grl_tpu rejects, loudly instead of ignoring it."""
     if getattr(args, "loss", "oim") != "oim":

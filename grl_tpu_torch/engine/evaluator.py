@@ -23,10 +23,14 @@ each rank describes its contiguous stripe of each catalog
 the features in catalog order on every rank. In eval mode a clip's
 descriptor depends on no other clip, so the assembled features are those
 of one process describing the whole catalog, which is also what grl_tpu's
-one-process mesh gives. From there every rank runs the one-card path on
-the whole features: the distances, re-ranking (the min-plus kernel
-launches once per rank; grl_tpu row-shards it, which only adds memory past
-one card) and the protocol. Every rank returns the same rank-1 and mAP.
+one-process mesh gives. From there, on a group of more than one rank, the
+tail is sharded as grl_tpu shards it (``evaluator.py:360-398``): each rank
+computes its block of the distances (``parallel.sharded_cosine_distance``,
+``rerank_columns``), re-ranking runs row-sharded over the group (the
+min-plus kernel launches on every rank, over its rows of V), and each rank
+scores its query rows of the result (``metrics.evaluate_device(mesh=)``).
+Every rank returns the same rank-1, mAP and whole distance matrix. A
+one-rank group runs the one-card tail.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 
 from .. import resolve_device
 from ..data.transforms import normalize
-from ..parallel import gather_striped_rows
+from ..parallel import gather_striped_rows, row_block, sharded_cosine_distance
 from . import metrics
 from .rerank import re_ranking, warn_if_degenerate
 from .visualize import visualize_ranked_results
@@ -55,6 +59,27 @@ def _euclidean(a, b):
     distance at 1e-12 before the square root, as grl_tpu does."""
     sq = (a * a).sum(dim=1)[:, None] - 2.0 * (a @ b.T) + (b * b).sum(dim=1)[None, :]
     return sq.clamp(min=1e-12).sqrt()
+
+
+def rerank_columns(qf, gf, mesh):
+    """This rank's share of re-ranking's input under ``mesh``: the columns
+    ``parallel.row_block(q + g, mesh)`` of ``c = [[q_q, q_g], [q_gᵀ, g_g]]``
+    (q_g the cosine, q_q and g_g the euclidean distances of the Evaluator's
+    re-ranking), transposed, as ``re_ranking(mesh=)`` takes them: a query
+    column is q_q's column and q_g's row, a gallery column q_g's and
+    g_g's columns."""
+    q, g = qf.shape[0], gf.shape[0]
+    start, stop, _ = row_block(q + g, mesh)
+    out = torch.empty((stop - start, q + g), dtype=torch.float32, device=qf.device)
+    a, b = min(start, q), min(stop, q)
+    if b > a:
+        out[: b - a, :q] = _euclidean(qf, qf[a:b]).T
+        out[: b - a, q:] = sharded_cosine_distance(qf, gf, mesh, block=(a, b))
+    c, d = max(start, q) - q, max(stop, q) - q
+    if d > c:
+        out[b - a :, :q] = sharded_cosine_distance(qf, gf, mesh, axis=1, block=(c, d)).T
+        out[b - a :, q:] = _euclidean(gf, gf[c:d]).T
+    return out
 
 
 def make_descriptor_fn(cnn, siamese):
@@ -118,6 +143,35 @@ class Evaluator:
         self.save_distmat = save_distmat
         self.visual_dir = visual_dir
         self._describe = make_descriptor_fn(self.cnn, self.siamese)
+
+    def _distances(self, qf, gf, mesh):
+        """The final (q, q+g) distance matrix and the rows of it that this
+        rank scores (all of them without ``mesh``): the cosine distances,
+        re-ranked when re-ranking is on. Under ``mesh`` each rank computes
+        its block and every rank gets the whole matrix."""
+        if self.rerank:
+            print("Applying person re-ranking ...")
+            warn_if_degenerate(qf.shape[0] + gf.shape[0], self.rerank_k1, self.rerank_k2)
+            kw = dict(k1=self.rerank_k1, k2=self.rerank_k2, lambda_value=self.rerank_lambda)
+            if mesh is not None:
+                distmat = re_ranking(inputs_box=[rerank_columns(qf, gf, mesh)], query_num=qf.shape[0],
+                                     mesh=mesh, **kw)
+                start, stop, _ = row_block(qf.shape[0], mesh)
+                return distmat, distmat[start:stop]
+            # the reference's inputs: q_g is the COSINE distance matrix while
+            # q_q and g_g are euclidean. Handed over in a box that re_ranking
+            # empties, so the three matrices free once its builder has read
+            # them (the staged builder, above n = 16384, relies on that)
+            distmat = re_ranking(inputs_box=[cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)],
+                                 **kw)
+            return distmat, distmat
+        if mesh is None:
+            distmat = cosine_distance(qf, gf)
+            return distmat, distmat
+        rows = sharded_cosine_distance(qf, gf, mesh)
+        per = row_block(qf.shape[0], mesh)[2]
+        padded = torch.cat([rows, rows.new_zeros((per - rows.shape[0], rows.shape[1]))])
+        return gather_striped_rows(padded, qf.shape[0], mesh), rows
 
     def _to_device(self, clips_np):
         return torch.from_numpy(np.ascontiguousarray(clips_np)).to(self.device)
@@ -211,20 +265,8 @@ class Evaluator:
         print(f"Done, obtained {gf.shape[0]}-by-{gf.shape[1]} matrix")
 
         print("Computing distance matrix")
-        distmat = cosine_distance(qf, gf)
-        if self.rerank:
-            print("Applying person re-ranking ...")
-            warn_if_degenerate(qf.shape[0] + gf.shape[0], self.rerank_k1, self.rerank_k2)
-            # the reference's inputs: q_g is the COSINE distance matrix while
-            # q_q and g_g are euclidean. Handed over in a box that re_ranking
-            # empties, so the three matrices free once its builder has read
-            # them (the staged builder, above n = 16384, relies on that)
-            box = [distmat, _euclidean(qf, qf), _euclidean(gf, gf)]
-            distmat = None
-            distmat = re_ranking(
-                inputs_box=box,
-                k1=self.rerank_k1, k2=self.rerank_k2, lambda_value=self.rerank_lambda,
-            )
+        mesh = self.mesh if self.mesh is not None and self.mesh.size > 1 else None
+        distmat, rows = self._distances(qf, gf, mesh)
 
         if self.save_distmat and multihost is not None:
             print("--save-distmat skipped under multi-host; re-run on one process to save it")
@@ -233,7 +275,7 @@ class Evaluator:
                      q_camids=q_camids, g_pids=g_pids, g_camids=g_camids, rerank=np.bool_(self.rerank))
             print(f"saved distance matrix to {self.save_distmat}")
 
-        cmc_curve, mAP = metrics.evaluate_device(distmat, q_pids, g_pids, q_camids, g_camids)
+        cmc_curve, mAP = metrics.evaluate_device(rows, q_pids, g_pids, q_camids, g_camids, mesh=mesh)
         print_protocol(cmc_curve, mAP, cmc_topk)
         print("------------------")
         if self.visual_dir and multihost is not None:

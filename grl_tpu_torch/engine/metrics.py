@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel import row_block
 
 
 def _sorted_masks(distmat, query_ids, gallery_ids, query_cams, gallery_cams):
@@ -52,11 +55,31 @@ def evaluate(distmat, q_pids, g_pids, q_camids, g_camids, max_rank=100):
     return cmc_curve.astype(np.float32), float(ap.mean())
 
 
-def evaluate_device(distmat, q_pids, g_pids, q_camids, g_camids, max_rank=100):
+def evaluate_device(distmat, q_pids, g_pids, q_camids, g_camids, max_rank=100, mesh=None):
     """The same protocol on ``distmat``'s device (a torch tensor): only the
-    CMC curve and the mAP scalar come back to the host."""
+    CMC curve and the mAP scalar come back to the host.
+
+    With ``mesh`` (a ``parallel.Mesh``) the query rows are sharded over the
+    group, as grl_tpu's ``mesh=``: ``distmat`` is this rank's rows
+    ``parallel.row_block(q, mesh)`` of the (q, g) matrix, the ids are all
+    q queries'. Each rank scores its rows, padded to the block's height
+    with zero-distance rows whose pid is a sentinel below every real pid
+    (grl_tpu's; a constant -1 would match a junk pid -1 and fabricate
+    rank-1 hits), and the CMC hit counts, AP sums and valid counts are
+    summed over the ranks. Every rank returns the whole result."""
     dev = distmat.device
     as_dev = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+    if mesh is not None:
+        q_pids, q_camids, g_pids = np.asarray(q_pids), np.asarray(q_camids), np.asarray(g_pids)
+        start, stop, per = row_block(len(q_pids), mesh)
+        if distmat.shape[0] != stop - start:
+            raise ValueError(f"rank {mesh.rank} holds {distmat.shape[0]} query rows; row_block gives "
+                             f"[{start}, {stop})")
+        pad = per - (stop - start)
+        sentinel = int(min(q_pids.min(), g_pids.min())) - 1
+        distmat = torch.cat([distmat, distmat.new_zeros((pad, distmat.shape[1]))])
+        q_pids = np.concatenate([q_pids[start:stop], np.full(pad, sentinel, q_pids.dtype)])
+        q_camids = np.concatenate([q_camids[start:stop], np.full(pad, -1, q_camids.dtype)])
     q_pids, g_pids, q_camids, g_camids = map(as_dev, (q_pids, g_pids, q_camids, g_camids))
     max_rank = min(max_rank, distmat.shape[1])
 
@@ -65,19 +88,23 @@ def evaluate_device(distmat, q_pids, g_pids, q_camids, g_camids, max_rank=100):
     keep = ~(matches & (g_camids[indices] == q_camids[:, None]))
     kept = matches & keep
     valid = kept.any(dim=1)
-    if not bool(valid.any()):
-        raise RuntimeError("Error: all query identities do not appear in gallery")
-    nvalid = valid.sum().to(torch.float64)
-
     pos = torch.cumsum(keep, dim=1) - 1
     first_hit = torch.where(kept, pos, torch.iinfo(pos.dtype).max).min(dim=1).values
-    hits = (first_hit[:, None] <= torch.arange(max_rank, device=dev)[None, :]) & valid[:, None]
-    cmc_curve = hits.sum(dim=0) / nvalid
-
+    hits = ((first_hit[:, None] <= torch.arange(max_rank, device=dev)[None, :]) & valid[:, None]).sum(dim=0)
     cum_hits = torch.cumsum(kept, dim=1).to(torch.float64)
     precision = torch.where(kept, cum_hits / (pos + 1).clamp(min=1), 0.0)
     ap = precision.sum(dim=1) / kept.sum(dim=1).clamp(min=1)
-    mAP = torch.where(valid, ap, 0.0).sum() / nvalid
+    ap_sum = torch.where(valid, ap, 0.0).sum()
+    nvalid = valid.sum()
+    if mesh is not None:
+        sums = torch.cat([hits.to(torch.float64), ap_sum[None], nvalid[None].to(torch.float64)])
+        dist.all_reduce(sums)
+        hits, ap_sum, nvalid = sums[:max_rank], sums[max_rank], sums[max_rank + 1]
+    if not bool(nvalid > 0):
+        raise RuntimeError("Error: all query identities do not appear in gallery")
+    nvalid = nvalid.to(torch.float64)
+    cmc_curve = hits / nvalid
+    mAP = ap_sum / nvalid
     return cmc_curve.to(torch.float32).cpu().numpy(), float(mAP)
 
 

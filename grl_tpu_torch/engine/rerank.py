@@ -23,11 +23,20 @@ Every device builder ends in the Jaccard min-sum, the hand-written min-plus
 kernel (``ops.minplus``), over V built in 16-byte aligned rows
 (``ops.padded_empty``) so the kernel reads it in place.
 
+With ``mesh`` (a ``parallel.Mesh``: one process per card) the staged
+builder is row-sharded over the group (``_re_ranking_sharded``): each rank
+builds, from its own block of the distances' columns, its rows of every
+n² stage, sees the other rows only through the gathered top-k indices and
+V's rows passed around the ranks, and runs the min-plus kernel on its own
+rows of V. grl_tpu's second mesh variant, the one-program builder with
+only its min-sum sharded, computes the same function and is not carried
+over.
+
 Not carried over: grl_tpu's caches of compiled stage programs
 (``_STAGED_CACHE``, ``_BUILD_V_CACHE``, ``_PADDED_RERANK_CACHE``), since
 torch has nothing to compile, and the host-read barriers of its staged
 builder (``sync``), whose job the caching allocator's stream-ordered frees
-already do. The ``mesh`` row-sharding waits for multi-card support.
+already do.
 """
 
 from __future__ import annotations
@@ -36,8 +45,10 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import minplus, padded_empty
+from ..parallel import row_block
 
 # B-row slab width of the deferred min-plus loop; row-block width of the
 # staged stages. Module constants so tests can shrink them and run the
@@ -132,7 +143,7 @@ def _jaccard_blend(min_sum, original_q, lambda_value):
 
 
 def re_ranking(q_g_dist=None, q_q_dist=None, g_g_dist=None, k1=20, k2=6, lambda_value=0.3,
-               min_sum_fn=minplus, staged=None, inputs_box=None, valid=None):
+               min_sum_fn=minplus, staged=None, inputs_box=None, valid=None, mesh=None, query_num=None):
     """Re-ranked (q, g) distance matrix from the three distance matrices,
     computed on their device. ``min_sum_fn`` is the Jaccard min-sum: the
     min-plus kernel wrapper, or ``ops.minplus_plain`` to check it.
@@ -145,7 +156,17 @@ def re_ranking(q_g_dist=None, q_q_dist=None, g_g_dist=None, k1=20, k2=6, lambda_
     ng)`` valid counts of capacity-padded inputs (the serve daemon's index
     past the padded builder's scale); forces the staged builder, whose
     first stage then masks the padding. Output rows past nq and columns
-    past ng are garbage; callers slice. Requires ``nq + ng >= k1 + 1``."""
+    past ng are garbage; callers slice. Requires ``nq + ng >= k1 + 1``.
+
+    ``mesh``: the row-sharded staged builder over the group, on every rank
+    at once. Each rank's ``inputs_box`` then holds ONE matrix: its columns
+    ``parallel.row_block(n, mesh)`` of the (n, n) input ``c = [[q_q, q_g],
+    [q_gᵀ, g_g]]``, transposed (row j is column j of c; c is symmetric, and
+    its columns are what the one-process builder reads, so they round
+    alike), and ``query_num`` is q (``evaluator.rerank_columns`` builds
+    them from features). Every rank returns the whole (q, g) result."""
+    if mesh is not None:
+        return _re_ranking_sharded(inputs_box, query_num, mesh, k1, k2, lambda_value, min_sum_fn, valid)
     if inputs_box is not None:
         q_g_dist, q_q_dist, g_g_dist = inputs_box
         inputs_box.clear()
@@ -182,6 +203,202 @@ def re_ranking(q_g_dist=None, q_q_dist=None, g_g_dist=None, k1=20, k2=6, lambda_
     del v
     final = _jaccard_blend(min_sum, original_q, lambda_value)
     return final[:, query_num : query_num + gallery_num]
+
+
+def _re_ranking_sharded(box, q, mesh, k1, k2, lambda_value, min_sum_fn, valid):
+    """The staged builder row-sharded over ``mesh``; ``box`` holds this
+    rank's block of c's columns, transposed (``re_ranking``), and is
+    emptied on entry so that the block frees after s1.
+
+    n is padded to ``per · size`` with grl_tpu's phantom items (normalized
+    distance 1.0 from every item, 0.0 from themselves; −2.0 and 0.0 under
+    ``valid``, like capacity padding), which give no weight to a real row
+    and are sliced off. Rank r owns rows ``[r·per, (r+1)·per)`` of every
+    stage: of each n² stage buffer it holds ``per × n``, never the whole,
+    and its row blocks are ``_STAGE_BLOCK / size`` rows, so that the
+    stages' block temporaries (s2's sort of whole rows above all) shrink
+    with its share too.
+
+    - s1: its rows of the negated normalized matrix, each row over its own
+      maximum (the column maximum of c);
+    - s2: its rows' top-k indices, all-gathered (n × k int32: the only view
+      of other rows that the set algebra needs);
+    - s3: its rows of ``A ∧ Aᵀ`` and of the expansion, ``Aᵀ``'s rows and the
+      half sets' row slabs rebuilt locally from the gathered indices;
+    - s4: its rows of V, in place;
+    - s5: its rows of the expanded V, from V's row slabs broadcast by
+      their owners in turn (no rank holds V whole);
+    - the min-sum: the q expanded query rows broadcast by their owners,
+      then the min-plus kernel on its own rows, one ``_MINPLUS_CHUNK`` slab
+      at a time: columns ``[r·per, (r+1)·per)`` of the (q, n) min-sum;
+    - the blend with ``original[:q]``'s same columns, which are its rows'
+      first q entries over the query rows' maxima (gathered); then the
+      ranks' column blocks are all-gathered."""
+    (cols,) = box
+    box.clear()
+    r, n0 = cols.shape
+    start, stop, per = row_block(n0, mesh)
+    if r != stop - start:
+        raise ValueError(f"rank {mesh.rank} holds {r} columns of c; row_block gives [{start}, {stop})")
+    block = -(-_STAGE_BLOCK // mesh.size)
+    neg, mx, sq_q, col_valid = _s1_rows(cols, q, start, per, per * mesh.size, valid, block)
+    del cols
+    half = int(np.around(k1 / 2.0)) + 1
+    top = _gather_rows(_s2_topk(neg, max(k1 + 1, half, k2), block).to(torch.int32), mesh)  # (n, k)
+    mx_q = _gather_rows(mx, mesh)[:q]
+    expansion = _s3b_rows(_reciprocal_rows(top[:, : k1 + 1], start, per), top[:, :half], block)
+    # s4, in place: neg becomes V
+    v = neg.exp_()
+    v.mul_(expansion)
+    del expansion
+    v.div_(v.sum(dim=1, keepdim=True))
+    if k2 != 1:
+        v = _qexpand_sharded(v, top[start : start + per, :k2].long(), mesh, block)
+    del top
+    vq = _broadcast_query_rows(v, q, mesh)
+    min_sum = torch.cat([min_sum_fn(vq, v[s : s + _MINPLUS_CHUNK]) for s in range(0, per, _MINPLUS_CHUNK)], dim=1)
+    del v, vq
+    # original[i, j] for the query rows i and this rank's columns j
+    original_q = sq_q.T / mx_q[:, None]
+    if valid is not None:
+        original_q = torch.where(col_valid[:q, None] & col_valid[None, start : start + per], original_q, 2.0)
+    final = _jaccard_blend(min_sum, original_q, lambda_value).contiguous()
+    del min_sum, original_q
+    return torch.cat(_all_gather(final, mesh), dim=1)[:, q:n0]
+
+
+def _all_gather(t, mesh):
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    dist.all_gather(parts, t)
+    return parts
+
+
+def _gather_rows(t, mesh):
+    """Every rank's equal-shaped ``t`` concatenated along rows, in rank order."""
+    return torch.cat(_all_gather(t.contiguous(), mesh))
+
+
+def _s1_rows(cols, q, start, per, n, valid, block):
+    """s1 on this rank's ``per`` rows: row j is ``-sq(c[:, j]) /
+    max(sq(c[:, j]))`` (the one-process stage's row j) for its columns
+    ``cols`` of c, in 16-byte aligned rows of all n items, with the phantom
+    items and ``valid``'s mask applied. Returns ``(neg, mx, sq_q,
+    col_valid)``: the rows' maxima (1 on phantom rows), their squared
+    entries against the q query items, and which of the n items are valid
+    (None without ``valid``)."""
+    r, n0 = cols.shape
+    device = cols.device
+    masked = valid is not None
+    out = padded_empty(per, n, device).fill_(-2.0 if masked else -1.0)
+    mx = torch.ones(per, dtype=torch.float32, device=device)
+    sq_q = torch.zeros((per, q), dtype=torch.float32, device=device)
+    col_valid = None
+    if masked:
+        item = torch.arange(n, device=device)
+        col_valid = torch.where(item < q, item < valid[0], (item - q < valid[1]) & (item < n0))
+    for s in range(0, r, block):
+        e = min(s + block, r)
+        blk = cols[s:e].square().to(torch.float32)
+        if masked:
+            pair = col_valid[start + s : start + e, None] & col_valid[None, :n0]
+            blk = torch.where(pair, blk, 0.0)
+        m = blk.max(dim=1).values
+        if masked:
+            m = m.clamp(min=1e-30)
+        sq_q[s:e] = blk[:, :q]
+        blk = blk.neg_().div_(m[:, None])  # -(x / m), in the block's own buffer
+        if masked:
+            blk = torch.where(pair, blk, -2.0)
+        out[s:e, :n0] = blk
+        mx[s:e] = m
+    # a zero diagonal: every item's under the mask, as the one-process
+    # masked stage; otherwise the phantoms' (the real ones are -0.0 already)
+    diag = torch.arange(0 if masked else r, per, device=device)
+    out[diag, start + diag] = 0.0
+    return out, mx, sq_q, col_valid
+
+
+def _reciprocal_rows(idx, start, rows):
+    """s3a: rows ``[start, start + rows)`` of the bool ``A ∧ Aᵀ``, where row
+    j of the top-k adjacency ``A`` holds ``idx[j]`` (every row's indices):
+    A's rows and Aᵀ's are scattered straight from the indices."""
+    n = idx.shape[0]
+    a = torch.zeros((rows, n), dtype=torch.bool, device=idx.device)
+    a.scatter_(1, idx[start : start + rows].long(), True)
+    at = torch.zeros_like(a)
+    hit = (idx >= start) & (idx < start + rows)
+    at[idx[hit].long() - start, hit.nonzero()[:, 0]] = True
+    return a.logical_and_(at)
+
+
+def _s3b_rows(r, idx_half, block):
+    """s3b: the bool expansion ``R'`` of the reciprocal sets' rows ``r`` (all
+    n, or a rank's), ``block`` rows at a time. The half sets ``B`` are
+    rebuilt a slab of ``block`` rows at a time from every row's indices
+    ``idx_half``, and each slab serves both products, the overlap
+    ``|R(i) ∩ B(c)|`` with its columns and the expansion by its rows, with
+    only (rows, n) slabs cast to bf16 (0/1 operands: every count is an
+    integer ≤ k1+1, exact in bf16 under any order of accumulation)."""
+    rows, n = r.shape
+    out = r.clone()
+    for m in range(0, n, block):
+        b = _reciprocal_rows(idx_half, m, min(block, n - m))
+        thresh = (2.0 / 3.0) * b.sum(dim=1, dtype=torch.float32)
+        bbf = b.to(torch.bfloat16)
+        del b
+        for s in range(0, rows, block):
+            rb = r[s : s + block]
+            overlap = (rb.to(torch.bfloat16) @ bbf.T).to(torch.float32)
+            qual = rb[:, m : m + block] & (overlap > thresh[None, :])
+            out[s : s + block] |= (qual.to(torch.bfloat16) @ bbf) > 0
+    return out
+
+
+def _padded_rows(x, a, b):
+    """Rows ``[a, b)`` of a ``padded_empty`` matrix as one contiguous block of
+    whole padded rows: what a collective sends or receives."""
+    stride = x.stride(0)
+    return x.as_strided((b - a, stride), (stride, 1), x.storage_offset() + a * stride)
+
+
+def _qexpand_sharded(v, idx2, mesh, block):
+    """s5 for this rank's rows: each row the mean of V's rows ``idx2`` (per,
+    kk; global indices). Every rank in turn broadcasts its rows of V, a
+    ``block`` rows at a time, and each rank adds the slab's rows
+    that its own rows name (one add per row and index column: the rows of
+    one ``index_add_`` are distinct)."""
+    per, n = v.shape
+    kk = idx2.shape[1]
+    out = padded_empty(per, n, v.device).zero_()
+    recv = torch.empty((min(block, per), v.stride(0)), dtype=v.dtype, device=v.device)
+    for src in range(mesh.size):
+        for s in range(0, per, block):
+            e = min(s + block, per)
+            slab = _padded_rows(v, s, e) if src == mesh.rank else recv[: e - s]
+            dist.broadcast(slab, src=src)
+            slab = slab[:, :n]
+            for j in range(kk):
+                t = idx2[:, j] - (src * per + s)
+                sel = ((t >= 0) & (t < e - s)).nonzero()[:, 0]
+                for c in range(0, sel.numel(), block):
+                    i = sel[c : c + block]
+                    out.index_add_(0, i, slab.index_select(0, t[i]))
+    return out.div_(kk)
+
+
+def _broadcast_query_rows(v, q, mesh):
+    """The q query rows of V on every rank, each owner broadcasting its
+    share, in 16-byte aligned rows that the kernel reads in place."""
+    per, n = v.shape
+    vq = padded_empty(q, n, v.device)
+    for src in range(mesh.size):
+        a, b = src * per, min((src + 1) * per, q)
+        if a >= q:
+            break
+        if src == mesh.rank:
+            vq[a:b] = v[: b - a]
+        dist.broadcast(_padded_rows(vq, a, b), src=src)
+    return vq
 
 
 def _min_sum_slabs(v, qexpand_idx, query_num, min_sum_fn):
@@ -234,8 +451,9 @@ def _build_v_staged(box, k1=20, k2=6, defer_qexpand=False, valid=None):
       ``re_ranking_padded`` does (pads at −2.0, zero diagonal);
     - s2 keeps the top-k indices only, sorted a row block at a time in
       ``top_k``'s order (``lax.top_k``'s);
-    - s3a builds the bool reciprocal adjacencies row block by row block;
-    - s3b counts the expansion from bf16 slabs (integers ≤ k1+1, exact);
+    - s3a scatters the bool reciprocal adjacency ``A ∧ Aᵀ`` from the indices;
+    - s3b counts the expansion from bf16 slabs of the half sets, each slab
+      rebuilt from the indices (integers ≤ k1+1, exact);
     - s4 forms ``exp(neg)·expansion``, row-normalized, in place over neg;
     - s5 averages each row over its k2 nearest, row block by row block.
 
@@ -255,7 +473,7 @@ def _build_v_staged(box, k1=20, k2=6, defer_qexpand=False, valid=None):
     idx_k1, idx_half = top[:, : k1 + 1], top[:, :half]
     idx_2 = top[:, :k2] if k2 != 1 else None
     original_q = -neg[:q]
-    expansion = _s3b_expansion(_s3a_reciprocal(idx_k1, n), _s3a_reciprocal(idx_half, n))
+    expansion = _s3b_rows(_reciprocal_rows(idx_k1, 0, n), idx_half, _STAGE_BLOCK)
     # s4, in place: neg becomes V (exp(-original) == exp(neg))
     v = neg.exp_()
     v.mul_(expansion)
@@ -317,56 +535,19 @@ def _s1_negated(q_g, q_q, g_g, valid):
     return out
 
 
-def _s2_topk(neg, k):
-    """s2: the (n, min(k, n)) indices of every row's largest entries of
+def _s2_topk(neg, k, block=None):
+    """s2: the (rows, min(k, n)) indices of every row's largest entries of
     ``neg`` (nearest items) in ``top_k``'s order, one row block at a time;
     every smaller k is a prefix. (The masked first stage leaves a +0.0
     diagonal among -0.0 entries, where the total order and the IEEE
-    comparison part.)"""
-    n = neg.shape[0]
+    comparison part.) ``block``: rows per sort (default ``_STAGE_BLOCK``)."""
+    rows, n = neg.shape
     k = min(k, n)
-    top = torch.empty((n, k), dtype=torch.int64, device=neg.device)
-    for s in range(0, n, _STAGE_BLOCK):
-        top[s : s + _STAGE_BLOCK] = top_k(neg[s : s + _STAGE_BLOCK], k)[1]
+    block = block or _STAGE_BLOCK
+    top = torch.empty((rows, k), dtype=torch.int64, device=neg.device)
+    for s in range(0, rows, block):
+        top[s : s + block] = top_k(neg[s : s + block], k)[1]
     return top
-
-
-def _s3a_reciprocal(idx, n):
-    """s3a: bool ``A ∧ Aᵀ`` of the top-k adjacency ``A`` given by ``idx``,
-    row block by row block (each block reads an (r, n) row slice and an
-    (n, r) column slice of A)."""
-    a = torch.zeros((n, n), dtype=torch.bool, device=idx.device)
-    a.scatter_(1, idx, True)
-    out = torch.empty_like(a)
-    for s in range(0, n, _STAGE_BLOCK):
-        out[s : s + _STAGE_BLOCK] = a[s : s + _STAGE_BLOCK] & a[:, s : s + _STAGE_BLOCK].T
-    return out
-
-
-def _s3b_expansion(r, b):
-    """s3b: the bool expansion ``R'`` from reciprocal sets ``r`` and half
-    sets ``b``, one row block of r at a time, with only (rows, n) slabs cast
-    to bf16 for the products (0/1 operands: every count is an integer ≤
-    k1+1, exact in bf16 under any order of accumulation)."""
-    n = r.shape[0]
-    thresh = (2.0 / 3.0) * b.sum(dim=1, dtype=torch.float32)
-    out = torch.empty_like(r)
-    for s in range(0, n, _STAGE_BLOCK):
-        rb = r[s : s + _STAGE_BLOCK]
-        rbf = rb.to(torch.bfloat16)
-        # overlap[i, c] = |R(i) ∩ B(c)|, by slabs of b's rows (columns c)
-        qual = torch.empty_like(rb)
-        for m in range(0, n, _STAGE_BLOCK):
-            overlap = (rbf @ b[m : m + _STAGE_BLOCK].to(torch.bfloat16).T).to(torch.float32)
-            qual[:, m : m + _STAGE_BLOCK] = rb[:, m : m + _STAGE_BLOCK] & (overlap > thresh[None, m : m + _STAGE_BLOCK])
-        del rbf
-        # expanded = qual @ b, accumulated over slabs of b's rows
-        expanded = rb.clone()
-        qbf = qual.to(torch.bfloat16)
-        for m in range(0, n, _STAGE_BLOCK):
-            expanded |= (qbf[:, m : m + _STAGE_BLOCK] @ b[m : m + _STAGE_BLOCK].to(torch.bfloat16)) > 0
-        out[s : s + _STAGE_BLOCK] = expanded
-    return out
 
 
 def re_ranking_padded(q_g, q_q, g_g, nq, ng, k1=20, k2=6, lambda_value=0.3, min_sum_fn=minplus):

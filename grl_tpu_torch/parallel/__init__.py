@@ -8,7 +8,9 @@ from .mesh import (
     current_mesh,
     data_mesh,
     replicate,
+    row_block,
     shard_batch,
+    sharded_cosine_distance,
     sharded_train_state,
     visible_devices,
 )
@@ -40,7 +42,9 @@ __all__ = [
     "maybe_initialize_distributed",
     "min_shard_size",
     "replicate",
+    "row_block",
     "shard_batch",
+    "sharded_cosine_distance",
     "shard_catalog",
     "sharded_train_state",
     "stripe_catalog",

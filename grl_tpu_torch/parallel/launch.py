@@ -2,8 +2,10 @@
 
 ``launch(fn, args, n)`` runs ``fn(args)`` in ``n`` new processes (spawned,
 so each starts clean), rank i on ``cuda:i`` over NCCL, or over gloo when
-``device`` is the CPU. The rendezvous is a ``FileStore`` in a fresh
-directory (no port to pick or race for). The parent forwards SIGTERM and
+``device`` is the CPU; with ``here``, this process joins as rank 0 and
+runs ``here()`` (a daemon keeps its own stdin, streams and signal
+handling), and the new processes are ranks 1 to n-1. The rendezvous is a
+``FileStore`` in a fresh directory (no port to pick or race for). The parent forwards SIGTERM and
 SIGINT to every rank, waits for them all, and raises as soon as one exits
 non-zero (the others are killed: they would wait forever in a collective),
 or at ``timeout``. A CPU rank runs one thread. Each rank that returns writes its result, and
@@ -55,11 +57,16 @@ def _rank_main(fn, args, rank, nprocs, device, store_path, result_path, multihos
     destroy_group()
 
 
-def launch(fn, args, nprocs, device="cuda", workdir=None, timeout=None, multihost=False):
+def launch(fn, args, nprocs, device="cuda", workdir=None, timeout=None, multihost=False, here=None):
     """Run ``fn(args)`` on ``nprocs`` ranks of a new group; returns each
     rank's return value, in rank order. ``multihost`` makes the ranks stand
     for grl_tpu's processes (``Mesh.multihost``). Raises ``RuntimeError``
-    when a rank fails and ``TimeoutError`` past ``timeout`` seconds."""
+    when a rank fails and ``TimeoutError`` past ``timeout`` seconds (the
+    new ranks' wait, after ``here`` returns).
+
+    ``here``: a callable that this process runs as rank 0, in the group,
+    in place of ``fn``; signals are then this process's own to handle (none
+    is forwarded), and the other ranks die with it."""
     device = torch.device(device)
     own_dir = workdir is None
     workdir = tempfile.mkdtemp(prefix="grl_launch_") if own_dir else os.fspath(workdir)
@@ -67,9 +74,10 @@ def launch(fn, args, nprocs, device="cuda", workdir=None, timeout=None, multihos
     store_path = os.path.join(workdir, f"rendezvous-{run}")
     result_path = os.path.join(workdir, f"result-{run}-{{rank}}.pkl")
     ctx = mp.get_context("spawn")
+    first = 0 if here is None else 1
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
                          args=(fn, args, r, nprocs, str(device), store_path, result_path, multihost))
-             for r in range(nprocs)]
+             for r in range(first, nprocs)]
 
     def forward(signum, _frame):
         for p in procs:
@@ -77,13 +85,21 @@ def launch(fn, args, nprocs, device="cuda", workdir=None, timeout=None, multihos
                 os.kill(p.pid, signum)
 
     previous = []
-    if threading.current_thread() is threading.main_thread():
+    if here is None and threading.current_thread() is threading.main_thread():
         for sig in (signal.SIGTERM, signal.SIGINT):
             previous.append((sig, signal.signal(sig, forward)))
-    deadline = None if timeout is None else time.monotonic() + timeout
     try:
         for p in procs:
             p.start()
+        results = []
+        if here is not None:
+            init_group(0, nprocs, device, store=dist.FileStore(store_path, nprocs), multihost=multihost)
+            try:
+                results.append(here())
+                coordination_barrier("launch_exit")
+            finally:
+                destroy_group()
+        deadline = None if timeout is None else time.monotonic() + timeout
         running = list(procs)
         while running:
             left = None if deadline is None else deadline - time.monotonic()
@@ -94,7 +110,7 @@ def launch(fn, args, nprocs, device="cuda", workdir=None, timeout=None, multihos
                 running.remove(p)
                 if p.exitcode != 0:
                     raise RuntimeError(f"{p.name} of {nprocs} exited with code {p.exitcode}")
-        return [_read(result_path.format(rank=r)) for r in range(nprocs)]
+        return results + [_read(result_path.format(rank=r)) for r in range(first, nprocs)]
     finally:
         for sig, handler in previous:
             signal.signal(sig, handler)

@@ -13,6 +13,13 @@ BatchNorm in the CNN (``nn/norm.py``), the CNN's outputs gathered in rank
 order before the heads and losses, and the gradients summed over the
 ranks.
 
+Past the step, the group splits re-ranking's n² work by rows
+(``engine/rerank.py``'s ``mesh=``): ``row_block`` deals a matrix's rows
+to the ranks in contiguous blocks, ``sharded_cosine_distance`` gives a
+rank its block of the cosine distances, and ``engine/metrics.py``
+scores each rank's query rows. Over gloo the collectives take CUDA
+tensors as they are (two gloo ranks may share one card).
+
 ``auto_mesh`` decides how many ranks a CLI launches (grl_tpu's rule: every
 visible card by default, capped by ``--devices``, and the largest count
 that divides the pairs); the ranks themselves are started by
@@ -142,6 +149,27 @@ def _tensors(obj):
             buf = obj.optimizer.state.get(p, {}).get("momentum_buffer")
             if buf is not None:
                 yield buf
+
+
+def row_block(n, mesh):
+    """This rank's rows ``(start, stop, per)`` of ``n`` rows dealt to the
+    group in contiguous blocks of ``per = ceil(n / size)``: rank r holds
+    ``[r·per, (r+1)·per)`` clipped to ``n``, so the last blocks may be short
+    or empty; ``per · size`` is ``n`` padded to a multiple of the group."""
+    per = max(-(-n // mesh.size), 1)
+    start = min(mesh.rank * per, n)
+    return start, min(start + per, n), per
+
+
+def sharded_cosine_distance(qf, gf, mesh, axis=0, block=None):
+    """This rank's block of the cosine distance ``-qf·gfᵀ``: its query rows
+    (``axis=0``: the rows the protocol scores on this rank) or its gallery
+    columns (``axis=1``: grl_tpu's sharding), ``row_block``'s share of them
+    or, with ``block=(start, stop)``, those."""
+    start, stop = block if block is not None else row_block((qf if axis == 0 else gf).shape[0], mesh)[:2]
+    if axis == 0:
+        return -(qf[start:stop] @ gf.T)
+    return -(qf @ gf[start:stop].T)
 
 
 def shard_batch(array, mesh, axis="data"):

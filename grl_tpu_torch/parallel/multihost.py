@@ -51,6 +51,7 @@ def init_group(rank, world_size, device="cuda", store=None, multihost=False, loc
         host_group = None
     mesh = Mesh(rank, world_size, device, host_group=host_group, store=store, multihost=multihost)
     _set_mesh(mesh)
+    _BARRIER_SEQ.clear()  # barriers are numbered per group
     establish_collectives()
     return mesh
 

@@ -525,7 +525,7 @@ def test_bf16_flag_runs_through_the_cli(cli, which):
         module.validate_args(module.build_parser().parse_args([*TINY, "--bf16"]))
     else:
         argv = cli.features_argv if which == "features" else ["export-model", "--bf16", "-o", "m.npz"]
-        t_extract._reject_unported(t_extract.build_parser().parse_args(["--device", "cpu", *argv]))
+        t_extract.build_parser().parse_args(["--device", "cpu", *argv])
     state = bf16_state(cli.num_classes, cli.ckpt)
     cnn, sia = state.models["cnn"].eval(), state.models["siamese"].eval()
     assert cnn.backbone.base.conv1.compute_dtype == TB and sia.featQ.compute_dtype == TB

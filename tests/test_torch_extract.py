@@ -378,19 +378,22 @@ def test_flags_are_grl_tpu_s_plus_device():
     assert top == {"device": "cuda"}
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["serve", "--model", "m.npz", "--devices", "2"], 7),
-    (["export-model", "--use-flow"], None),
-], ids=["serve-devices", "export-use-flow"])
-def test_unported_flags_exit_naming_their_roadmap_item(art, argv, item):
-    """``--devices 2`` exits naming its ROADMAP item; ``export-model
-    --use-flow``, ported since, exports a 6-channel program from a flow
-    checkpoint."""
-    if item is None:
-        out = art.path("flow_model.npz")
-        meta = port_main(*argv, "--checkpoint", art.flow_ckpt, *EXPORT, "-o", out)
-        assert meta["channels"] == 6 and meta["dim"] == DIM
-        assert json.loads(str(np.load(out)["meta"]))["channels"] == 6
+@pytest.mark.parametrize("argv", [["serve", "--devices", "2"], ["export-model", "--use-flow"]],
+                         ids=["serve-devices", "export-use-flow"])
+def test_unported_flags_exit_naming_their_roadmap_item(art, argv):
+    """Both flags are ported: ``serve --devices 2`` re-ranks on two gloo
+    ranks through the staged route and says so in its ping (its answers
+    are held in ``tests/test_torch_parallel_serve.py``); ``export-model
+    --use-flow`` exports a 6-channel program from a flow checkpoint."""
+    if argv[0] == "serve":
+        ping, rr, _ = port_serve([*argv[1:], "--model", art.port, "--gallery", art.path("gallery.npz"),
+                                  "--rerank-queries", "4"],
+                                 [{"op": "ping"}, {"op": "rank", "features": art.path("queries.npz"), "rerank": True},
+                                  {"op": "shutdown"}])
+        assert ping["rerank_devices"] == 2 and ping["rerank_staged"]
+        assert rr["ok"] and rr["reranked"] and len(rr["results"]) == 4
         return
-    with pytest.raises(SystemExit, match=f"queue A, item {item}"):
-        port_main(*argv)
+    out = art.path("flow_model.npz")
+    meta = port_main(*argv, "--checkpoint", art.flow_ckpt, *EXPORT, "-o", out)
+    assert meta["channels"] == 6 and meta["dim"] == DIM
+    assert json.loads(str(np.load(out)["meta"]))["channels"] == 6

@@ -10,11 +10,13 @@ import threading
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from grl_tpu_torch import models as tm
 from grl_tpu_torch import parallel
 from grl_tpu_torch.data import get_data
-from grl_tpu_torch.engine import Evaluator, Trainer, init_train_state, make_train_step
+from grl_tpu_torch.engine import Evaluator, Trainer, init_train_state, make_train_step, metrics, rerank
 from grl_tpu_torch.nn import GlobalBatchNorm
 
 WIDTH = 4
@@ -233,3 +235,41 @@ def job_fail(payload):
     if mesh.rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
     torch.distributed.barrier()
+
+
+class ShapeSpy(TorchDispatchMode):
+    """Records the shape of every tensor that an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.shapes.update(tuple(t.shape) for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+        return out
+
+
+def job_rerank_sharded(payload):
+    """On this rank: ``re_ranking(mesh=)`` of each case (its columns of c,
+    the case's slab and block widths) with the shapes of every tensor the
+    builder made; ``evaluate_device(mesh=)`` of each protocol case on its
+    query rows; both blocks of ``sharded_cosine_distance``."""
+    mesh = parallel.data_mesh()
+    out = {"rerank": [], "protocol": []}
+    for case in payload["rerank"]:
+        rerank._MINPLUS_CHUNK, rerank._STAGE_BLOCK = case["chunk"], case["block"]
+        c = case["c"]
+        start, stop, _ = parallel.row_block(c.shape[0], mesh)
+        box = [torch.from_numpy(np.ascontiguousarray(c[:, start:stop].T))]
+        with ShapeSpy() as spy:
+            got = rerank.re_ranking(inputs_box=box, query_num=case["q"], mesh=mesh, k1=case["k1"], k2=case["k2"],
+                                    valid=case["valid"])
+        out["rerank"].append({"distmat": got.numpy(), "shapes": spy.shapes, "box_emptied": box == []})
+    for distmat, ids in payload["protocol"]:
+        start, stop, _ = parallel.row_block(distmat.shape[0], mesh)
+        out["protocol"].append(metrics.evaluate_device(torch.from_numpy(distmat[start:stop]), *ids, max_rank=20,
+                                                       mesh=mesh))
+    qf, gf = (torch.from_numpy(x) for x in payload["cosine"])
+    out["cosine"] = [parallel.sharded_cosine_distance(qf, gf, mesh, axis=axis).numpy() for axis in (0, 1)]
+    return out

@@ -139,7 +139,8 @@ def test_port_imports_neither_jax_nor_grl_tpu():
         "    importlib.import_module(m.name)\n"
         "entry = ['grl_tpu_torch.cli.train', 'grl_tpu_torch.cli.evaluate', 'grl_tpu_torch.data.jpeg',\n"
         "         'grl_tpu_torch.data.catalogs', 'grl_tpu_torch.utils.serialization',\n"
-        "         'grl_tpu_torch.cli.extract', 'grl_tpu_torch.client']\n"
+        "         'grl_tpu_torch.cli.extract', 'grl_tpu_torch.client',\n"
+        "         'grl_tpu_torch.tools.bench_scaling', 'grl_tpu_torch.tools.bench_eval_tail']\n"
         "for name in entry:\n"
         "    importlib.import_module(name)\n"
         "assert all(name in sys.modules for name in entry)\n"

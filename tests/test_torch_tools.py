@@ -101,3 +101,34 @@ def test_rehearse_mars_scale_prints_its_line(tmp_path):
         assert report[k] > 0
     assert 0.0 <= report["eval_top1"] <= 1.0
     assert osp.exists(tmp_path / "mars" / "run" / "checkpoint.npz")
+
+
+def test_bench_scaling_runs_widths_1_and_2():
+    """``--tiny --device cpu --devices 2``: the group step at one and two
+    gloo ranks, the global batch doubling, one line per width and the JSON
+    line (CPU times share the host: only their presence is checked)."""
+    out = tool("bench_scaling", "--tiny", "--device", "cpu", "--devices", "2", "--iters", "2", "--seq_len", "2")
+    rows = last_json(out)["scaling"]
+    assert [r["devices"] for r in rows] == [1, 2] and [r["global_batch"] for r in rows] == [8, 16]
+    assert rows[0]["weak_scaling_eff"] == 1.0 and all(r["ms_per_step"] > 0 and np.isfinite(r["loss"]) for r in rows)
+    assert out.count("weak-scaling eff") == 2
+
+
+@pytest.mark.parametrize("argv", [["--rerank"], ["--lsvid", "--rerank", "--from-host", "--warm"], []],
+                         ids=["mars_rerank", "lsvid_from_host_warm", "mars"])
+def test_bench_eval_tail_one_rank_equals_two(monkeypatch, argv):
+    """The tool at sizes shrunk through ``SIZES`` (MARS 30 x 100, LS-VID 40 x
+    130): on one process and on 2 gloo ranks (the tail sharded), the same
+    rank-1 and mAP; each re-ranking pass launches one slab per process."""
+    from grl_tpu_torch.tools import bench_eval_tail
+
+    monkeypatch.setattr(bench_eval_tail, "SIZES", {"MARS": (30, 70), "LS-VID": (40, 90)})
+    one = bench_eval_tail.main(["--device", "cpu", "--dim", "32", *argv])
+    two = bench_eval_tail.main(["--device", "cpu", "--dim", "32", "--devices", "2", *argv])
+    assert len(one) == 1 and len(two) == 2
+    for r in two:
+        assert len(r["passes"]) == len(one[0]["passes"]) == (2 if "--warm" in argv else 1)
+        for got, want in zip(r["passes"], one[0]["passes"]):
+            assert got["rank1"] == want["rank1"] and abs(got["mAP"] - want["mAP"]) <= 1e-6
+            assert got["launches"] == want["launches"] == (1 if "--rerank" in argv else 0)
+            assert got["peak_gib"] is None and got["seconds"] > 0
