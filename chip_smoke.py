@@ -56,7 +56,8 @@ descriptor), with seeded random weights. Phases:
     saved distance matrix finite and equal to the evaluator's, which is
     checked against the same re-ranking with the plain min-sum;
 13. ``cli_mars``: a small dataset in MARS's on-disk layout (256x128 JPEGs
-    written with PIL), ``cli.train -d mars`` for one epoch and
+    written by ``tools.make_fake_mars`` at ``FAKE_SIZES``, its junk
+    tracklet included), ``cli.train -d mars`` for one epoch and
     ``cli.evaluate -d mars --rerank 1``, decoding through
     ``data/jpeg.py`` (the native routine where it builds, PIL otherwise);
 14. ``rerank_staged``: re-ranking of random unit 6144-d features at n =
@@ -152,6 +153,27 @@ descriptor), with seeded random weights. Phases:
     on the staged route, which says so; its re-ranked answers are the
     staged daemon's.
 
+24. ``fake_trees`` (after ``cli_mars``): ``tools.make_fake_duke`` and
+    ``tools.make_fake_mars`` write a DukeMTMC-VideoReID and a MARS tree of
+    256x128 JPEGs under ``build/chip_fake/`` (``FAKE_SIZES``: 16 train and
+    8 test ids, 2 cameras, 8-16 frames), each tree's file count and write
+    seconds;
+25. ``prepare_real_data``: the tool's ``main`` on both trees: "catalog ok",
+    the split-cache JSON files written, every spot-decoded frame 256x128x3,
+    the recipe naming ``grl_tpu_torch``, the decode route and the native
+    routine's build error;
+26. ``cli_duke``: on the Duke tree, ``cli.train -d duke -b 16 --epochs 1``
+    at full width, then ``cli.evaluate -d duke --rerank 1`` on its
+    checkpoint, with the launch counts zeroed before the evaluation and read
+    after it: the min-plus kernel launched, the distance matrix finite, the
+    re-ranking equal to the plain min-sum's;
+27. ``profile``: ``tools.profile_train_step`` in this process for the bf16
+    training step at batch 16 and the bf16 descriptor at micro-batch 96, 3
+    traced steps each, with ``--roofline convolution``: the kernel
+    categories sum to the kernel total, ``--report-only`` on the saved
+    trace prints the same tables, a convolution row carries the profiler's
+    flops.
+
 The kernel is also timed at the serve route's shape (32 x 11598 x 11598),
 at one slab of the staged builder (1980 x 8192 x 19960) and at the short
 slab that ends each rank's rows in ``rerank_sharded`` (1980 x 1788 x
@@ -211,7 +233,11 @@ from grl_tpu_torch.nn.norm import _GlobalBatchNormFn
 from grl_tpu_torch.ops.build import BUILD_INFO
 from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
+from grl_tpu_torch.tools import make_fake_duke, make_fake_mars, prepare_real_data, profile_train_step
 from grl_tpu_torch.utils import AsyncCheckpointer, load_train_state, serialization
+# the card's peaks (H100 SXM data sheet): dense bf16 on the tensor cores,
+# fp32 outside them, and device memory bandwidth
+from grl_tpu_torch.utils.profiling import PEAK_BF16_OPS, PEAK_BYTES, PEAK_FP32_OPS
 
 # the MARS test split: 1980 queries, 11310 = 1980 + 9330 query ∪ gallery
 MARS_Q, MARS_EXTRA_G = 1980, 9330
@@ -233,11 +259,6 @@ SERVE = {"batch": 32, "seq_len": 8, "frame": (256, 128), "gallery": 11054, "add"
          "capacity": 11310, "staged_capacity": 16384, "queries": 16, "clips": 64, "dim": 6144}
 SERVE_N = SERVE["batch"] + SERVE["capacity"] + 256
 SERVE_SHAPE = (SERVE["batch"], SERVE_N, SERVE_N)  # V[:q_pad] x V
-# the card's peaks (H100 SXM data sheet): fp32 outside the tensor cores,
-# and device memory bandwidth
-PEAK_FP32_OPS = 67e12
-PEAK_BF16_OPS = 989e12  # dense, tensor cores
-PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5  # fp32, sums of row-normalized values (≤ 1) in another order
 MODEL_TOL = 1e-3   # fp32 card vs fp32 CPU through ~60 conv layers
 # the full-width bf16 model against fp32, and bf16 on the card against
@@ -284,6 +305,13 @@ SERVE_DIR = BUILD / "chip_serve"
 FLOW_DIR, FLOW_RUN = BUILD / "chip_flow", BUILD / "chip_flow_run"
 FLOW_IDS, FLOW_FRAMES = 24, 24
 FLOW_FRAME = (256, 128)
+# the fake MARS and Duke trees (``tools.make_fake_mars``/``make_fake_duke``):
+# 16 train ids and 8 test ids over 2 cameras, 8-16 frames a tracklet
+FAKE_SIZES = dict(train_ids=16, test_ids=8, cams=2, frames_range=(8, 16))
+FAKE_DIR, DUKE_RUN, PROFILE_DIR = BUILD / "chip_fake", BUILD / "chip_duke_run", BUILD / "chip_profile"
+# the profile phase: the bf16 training step at the reference batch and the
+# bf16 descriptor at bench.py's micro-batch, 3 traced steps each
+PROFILES = (("train", 16), ("describe", 96))
 # parameters no loss term reaches: they move by weight decay alone
 UNREACHED = ("siamese.featV.", "siamese.featV_bn.", "siamese_uncorr.classifierlinear.",
              "siamese_uncorr.classifierBN.")
@@ -1448,44 +1476,6 @@ def phase_cli_evaluate(device="cuda", extra=()):
     return launches
 
 
-def write_fake_mars(root, train_ids=16, test_ids=8, frames_range=(8, 16), height=256, width=128, seed=0):
-    """A small dataset in MARS's on-disk layout: ``bbox_{train,test}/<pid>/
-    <pid>C<cam>T0001F<f>.jpg`` (one tracklet per id and camera, frames from
-    the synthetic catalog's templates, written with PIL), ``info/*_name.txt``,
-    ``tracks_*_info.mat`` and ``query_IDX.mat`` (camera 1 of every test id)."""
-    from PIL import Image
-    from scipy.io import savemat
-
-    from grl_tpu_torch.data.catalogs.synthetic import _template
-
-    rng = np.random.RandomState(seed)
-    (root / "info").mkdir(parents=True)
-
-    def split(dirname, pids):
-        names, rows = [], []
-        for pid in pids:
-            template = _template(rng, height, width)
-            (root / dirname / f"{pid:04d}").mkdir(parents=True)
-            for cam in (1, 2):
-                n = rng.randint(*frames_range)
-                rows.append([len(names) + 1, len(names) + n, pid, cam])
-                for f in range(1, n + 1):
-                    img = (template * (0.9 + 0.2 * (cam - 1)) + 0.08 * rng.randn(height, width, 3)) * 255
-                    name = f"{pid:04d}C{cam}T0001F{f:03d}.jpg"
-                    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(root / dirname / f"{pid:04d}" / name)
-                    names.append(name)
-        (root / "info" / f"{dirname[5:]}_name.txt").write_text("\n".join(names) + "\n")
-        return np.array(rows, np.int64)
-
-    train_rows = split("bbox_train", range(1, train_ids + 1))
-    test_rows = split("bbox_test", range(train_ids + 1, train_ids + test_ids + 1))
-    savemat(root / "info" / "tracks_train_info.mat", {"track_train_info": train_rows})
-    savemat(root / "info" / "tracks_test_info.mat", {"track_test_info": test_rows})
-    query = [i + 1 for i, row in enumerate(test_rows) if row[3] == 1]
-    savemat(root / "info" / "query_IDX.mat", {"query_IDX": np.array([query])})
-    return int(train_rows[-1][1] + test_rows[-1][1])
-
-
 def phase_cli_mars(device="cuda", extra=(), frame=FRAME):
     """``cli.train -d mars`` for one epoch and ``cli.evaluate -d mars
     --rerank 1`` over a MARS layout written here, through the JPEG decode."""
@@ -1493,8 +1483,9 @@ def phase_cli_mars(device="cuda", extra=(), frame=FRAME):
     for d in (root, logs):
         shutil.rmtree(d, ignore_errors=True)
     t0 = time.perf_counter()
-    frames = write_fake_mars(root, height=frame[0], width=frame[1])
+    make_fake_mars.make_fake_mars(root, **FAKE_SIZES, height=frame[0], width=frame[1])
     write_s = time.perf_counter() - t0
+    frames = jpeg_count(root)
     common = ["-d", "mars", "--data-dir", str(root), "--logs-dir", str(logs), *extra]
     with recording() as rec:
         t0 = time.perf_counter()
@@ -1520,6 +1511,124 @@ def phase_cli_mars(device="cuda", extra=(), frame=FRAME):
     check(bool(torch.isfinite(res.distmat).all()), "MARS distmat not finite")
     check(err <= KERNEL_TOL, f"cli.evaluate -d mars re-ranking, kernel vs plain min-sum: {err}")
     return launches
+
+
+def jpeg_count(root):
+    return sum(1 for _ in Path(root).rglob("*.jpg"))
+
+
+def phase_fake_trees(frame=FRAME):
+    """The port's fake-data tools write a DukeMTMC-VideoReID and a MARS tree
+    under ``build/chip_fake`` (``FAKE_SIZES``); returns their roots."""
+    shutil.rmtree(FAKE_DIR, ignore_errors=True)
+    trees, stats = {}, {}
+    for name, write in (("duke", make_fake_duke.make_fake_duke), ("mars", make_fake_mars.make_fake_mars)):
+        t0 = time.perf_counter()
+        trees[name] = write(FAKE_DIR / name, **FAKE_SIZES, height=frame[0], width=frame[1])
+        stats[name] = {"write_seconds": time.perf_counter() - t0, "files": make_fake_mars.count_files(trees[name]),
+                       "jpegs": jpeg_count(trees[name])}
+    log("fake_trees", frame=list(frame), **stats)
+    for name, st in stats.items():
+        check(st["jpegs"] > 0, f"make_fake_{name} wrote no JPEG")
+    return trees
+
+
+def phase_prepare_real_data(trees):
+    """``tools.prepare_real_data`` on each fake tree: the catalog builds, its
+    split caches are written, every spot-decoded frame is 256x128x3 and the
+    recipe names the port's entry points."""
+    out = {}
+    for name, root in trees.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = prepare_real_data.main([name, "--data-dir", str(root)])
+        text = buf.getvalue()
+        caches = sorted(p.name for p in Path(root).glob("split_*.json"))
+        out[name] = {"seconds": time.perf_counter() - t0, "catalog_seconds": res["catalog_seconds"],
+                     "splits": res["splits"], "caches": caches, "decoded": len(res["decoded_shapes"]),
+                     "routes": res["routes"], "native_error": res["native_error"]}
+        check("catalog ok" in text, f"prepare_real_data {name}: no 'catalog ok'")
+        check({"split_train.json", "split_query.json", "split_gallery.json"} <= set(caches),
+              f"prepare_real_data {name}: split caches {caches}")
+        check(res["decoded_shapes"] and all(s == (256, 128, 3) for s in res["decoded_shapes"]),
+              f"prepare_real_data {name}: decoded shapes {set(res['decoded_shapes'])}")
+        check("python -m grl_tpu_torch.cli.train" in res["recipe"], f"prepare_real_data {name}: recipe")
+    log("prepare_real_data", **out)
+
+
+def phase_cli_duke(root, device="cuda", extra=()):
+    """``cli.train -d duke`` for one epoch and ``cli.evaluate -d duke --rerank
+    1`` over the fake Duke tree, through the JPEG decode; the launch counts
+    are zeroed before the evaluation and read after it."""
+    shutil.rmtree(DUKE_RUN, ignore_errors=True)
+    common = ["-d", "duke", "--data-dir", str(root), "--logs-dir", str(DUKE_RUN), *extra]
+    with recording() as rec:
+        t0 = time.perf_counter()
+        top1_train = run_cli(cli_train, [*common, "-b", "16", "--epochs", "1"], device)
+        sync(device)
+        train_s = time.perf_counter() - t0
+        zero_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        top1 = run_cli(cli_evaluate, [*common, "--rerank", "1", "--seed", "0",
+                                      "--checkpoint", str(DUKE_RUN / "checkpoint.npz")], device)
+        sync(device)
+        eval_s = time.perf_counter() - t0
+    launches = read_launches()
+    res = rec["evals"][-1]
+    err = rerank_vs_plain(res)
+    log("cli_duke", train_seconds=train_s, evaluate_seconds=eval_s, train_steps=rec["state"].step,
+        top1_train_eval=top1_train, top1=top1, mAP=res.mAP, query=int(res.qf.shape[0]),
+        gallery=int(res.gf.shape[0]), distmat_shape=list(res.distmat.shape), launches=launches,
+        native_jpeg=dict(jpeg.NATIVE_INFO), rerank_vs_plain_max_abs_diff=err)
+    check(rec["state"].step >= 1 and np.isfinite(rec["epochs"][-1]["loss"]), "cli.train -d duke did not train")
+    if torch.device(device).type == "cuda":
+        check(launches["minplus"] >= 1, "cli.evaluate -d duke --rerank 1 did not launch the min-plus kernel")
+    check(bool(torch.isfinite(res.distmat).all()), "Duke distmat not finite")
+    check(err <= KERNEL_TOL, f"cli.evaluate -d duke re-ranking, kernel vs plain min-sum: {err}")
+    return launches
+
+
+def phase_profile(programs=PROFILES, extra=()):
+    """``tools.profile_train_step`` in this process: each program traced for
+    3 steps and reported by kernel category with the convolutions'
+    roofline, then the saved trace reported again with ``--report-only``,
+    which must print the same tables; the categories must sum to the
+    kernel total."""
+    for program, batch in programs:
+        logdir = PROFILE_DIR / program
+        shutil.rmtree(logdir, ignore_errors=True)
+        argv = ["--program", program, "--batch", str(batch), "--steps", "3", "--roofline", "convolution",
+                "--logdir", str(logdir), *extra]
+        printed = []
+        t0 = time.perf_counter()
+        for more in ([], ["--report-only"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = profile_train_step.main([*argv, *more])
+            printed.append(buf.getvalue())
+            if not more:
+                seconds = time.perf_counter() - t0
+        total, cats = res["total_ms"], res["categories"]
+        cat_sum = sum(c["ms"] for c in cats.values())
+        conv = [{k: r[k] for k in ("name", "ms_step", "occ", "tflops_s", "pct_ops", "gbytes_s", "pct_bytes", "bound")}
+                for r in res["roofline"]]
+        meta = res["meta"]
+        log("profile", program=program, batch=batch, steps=meta["steps"], seconds=seconds,
+            trace_bytes=(logdir / "trace.json").stat().st_size, kernel_ms_total=total,
+            kernel_ms_per_step=total / meta["steps"], category_sum_ms=cat_sum, linked=res["linked"],
+            top_categories=sorted(([c, v["ms"] / meta["steps"], v["share"], v["count"]] for c, v in cats.items()),
+                                  key=lambda r: -r[1])[:5],
+            top_kernels=res["top"][:5], convolution_rows=conv,
+            flops_ops=[meta["flops_ops"], meta["flops_ops_matched"]], nvidia_smi=meta.get("nvidia_smi"),
+            dtype=meta["compute_dtype"])
+        check(res["on_device"] or not torch.cuda.is_available(), f"profile {program}: no device events")
+        check(total > 0 and abs(cat_sum - total) <= 0.01 * total,
+              f"profile {program}: categories sum to {cat_sum} ms of {total}")
+        check(printed[0] == printed[1], f"profile {program}: --report-only printed other tables")
+        check(conv and any(r["tflop"] > 0 for r in res["roofline"]),
+              f"profile {program}: no convolution row with the profiler's flops")
 
 
 def write_flow_layout(root, num_ids=FLOW_IDS, frames=FLOW_FRAMES, height=128, width=64, seed=0):
@@ -2542,6 +2651,12 @@ def main():
     cli_eval_launches = phase_cli_evaluate()
     mars_launches = phase_cli_mars()
     torch.cuda.empty_cache()
+    trees = phase_fake_trees()
+    phase_prepare_real_data(trees)
+    duke_launches = phase_cli_duke(trees["duke"])
+    torch.cuda.empty_cache()
+    phase_profile()
+    torch.cuda.empty_cache()
     flow_launches, flow_ckpt = phase_flow_cli()
     torch.cuda.empty_cache()
     flow_rank_launches = phase_flow_serve(flow_ckpt, gen)
@@ -2566,6 +2681,7 @@ def main():
                                  "cli_train": cli_train_launches["minplus"],
                                  "cli_evaluate": cli_eval_launches["minplus"],
                                  "cli_mars_evaluate": mars_launches["minplus"],
+                                 "cli_duke_evaluate": duke_launches["minplus"],
                                  "rerank_staged": staged_launches, **serve_launches,
                                  "rank_cli": rank_cli_launches["minplus"],
                                  "cli_bf16_train": bf16_launches["train"],

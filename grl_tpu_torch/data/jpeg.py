@@ -82,15 +82,21 @@ def decode_pil(path, height, width):
         return np.asarray(img, dtype=np.uint8)
 
 
-def decode_resize(path, height, width):
-    """Decode an image file to a (height, width, 3) uint8 array: the native
-    routine when it is available and takes the file, PIL otherwise. Raises
-    on undecodable input either way."""
+def decode_route(path, height, width):
+    """``(image, route)``: ``decode_resize``'s array and which routine made
+    it, ``"native"`` or ``"PIL"``."""
     if _load():
         with open(path, "rb") as f:
             data = f.read()
         out = np.empty((height, width, 3), np.uint8)
         if _lib.grl_decode_resize(data, len(data), height, width, out.ctypes.data_as(ctypes.c_void_p)) == 0:
-            return out
+            return out, "native"
         # not a JPEG (e.g. PNG frames): PIL
-    return decode_pil(path, height, width)
+    return decode_pil(path, height, width), "PIL"
+
+
+def decode_resize(path, height, width):
+    """Decode an image file to a (height, width, 3) uint8 array: the native
+    routine when it is available and takes the file, PIL otherwise. Raises
+    on undecodable input either way."""
+    return decode_route(path, height, width)[0]

@@ -35,87 +35,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import os.path as osp
 import re
 import resource
 import sys
 import time
 
-import numpy as np
+from .make_fake_mars import make_fake_mars
 
 
 def rss_mb():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
-
-
-def make_fake_mars(root, train_ids=4, test_ids=3, cams=2, tracklets_per_id_cam=1, frames_range=(12, 20),
-                   height=128, width=64, seed=0, junk_tracklets=1, query_cams=1,
-                   test_tracklets_per_id_cam=None):
-    """Write a dataset in MARS's on-disk layout under ``root`` and return
-    ``root``: ``bbox_{train,test}/<pid4>/<pid4>C<cam>T<tid>F<f>.jpg``, the
-    ``info/*_name.txt`` lists and the ``tracks_*_info.mat`` /
-    ``query_IDX.mat`` metadata, as ``tools/make_fake_mars.py`` writes them.
-    pids are 1-based; ``junk_tracklets`` of pid -1 (the ``0000`` directory)
-    go into the test split; queries are the first tracklet of every test
-    pid on cameras 1..``query_cams``, so each keeps a cross-camera match."""
-    from PIL import Image
-    from scipy.io import savemat
-
-    from ..data.catalogs.synthetic import _template
-
-    rng = np.random.RandomState(seed)
-    root = osp.abspath(root)
-    info = osp.join(root, "info")
-    os.makedirs(info, exist_ok=True)
-    all_ids = list(range(1, train_ids + test_ids + 1))
-    templates = {pid: _template(rng, height, width) for pid in all_ids}
-
-    def write_tracklet(split_dir, pid, cam, tid, n_frames):
-        dirname = f"{max(pid, 0):04d}"
-        os.makedirs(osp.join(root, split_dir, dirname), exist_ok=True)
-        tint = 0.9 + 0.2 * (cam - 1) / max(cams - 1, 1)
-        template = templates.get(pid)
-        names = []
-        for f in range(1, n_frames + 1):
-            if template is None:  # junk: noise
-                img = rng.randint(0, 255, (height, width, 3)).astype(np.uint8)
-            else:
-                img = np.clip((template * tint + 0.08 * rng.randn(height, width, 3)) * 255, 0, 255).astype(np.uint8)
-            name = f"{dirname}C{cam}T{tid:04d}F{f:03d}.jpg"
-            Image.fromarray(img).save(osp.join(root, split_dir, dirname, name))
-            names.append(name)
-        return names
-
-    def build_split(split_dir, pids, junk, tpic):
-        names, rows, start = [], [], 1
-        for pid in pids:
-            for cam in range(1, cams + 1):
-                for t in range(1, tpic + 1):
-                    nf = rng.randint(*frames_range)
-                    names += write_tracklet(split_dir, pid, cam, t, nf)
-                    rows.append([start, start + nf - 1, pid, cam])
-                    start += nf
-        for _ in range(junk):
-            nf = rng.randint(*frames_range)
-            names += write_tracklet(split_dir, -1, 1, 1, nf)
-            rows.append([start, start + nf - 1, -1, 1])
-            start += nf
-        return names, np.array(rows, np.int64)
-
-    test_tpic = test_tracklets_per_id_cam or tracklets_per_id_cam
-    train_names, train_rows = build_split("bbox_train", all_ids[:train_ids], 0, tracklets_per_id_cam)
-    test_names, test_rows = build_split("bbox_test", all_ids[train_ids:], junk_tracklets, test_tpic)
-    with open(osp.join(info, "train_name.txt"), "w") as f:
-        f.write("\n".join(train_names) + "\n")
-    with open(osp.join(info, "test_name.txt"), "w") as f:
-        f.write("\n".join(test_names) + "\n")
-    savemat(osp.join(info, "tracks_train_info.mat"), {"track_train_info": train_rows})
-    savemat(osp.join(info, "tracks_test_info.mat"), {"track_test_info": test_rows})
-    q_rows = [i + 1 for i, row in enumerate(test_rows)
-              if row[2] != -1 and row[3] <= query_cams and (test_tpic == 1 or (i % test_tpic) == 0)]
-    savemat(osp.join(info, "query_IDX.mat"), {"query_IDX": np.array([q_rows])})
-    return root
 
 
 def main(argv=None):

@@ -9,8 +9,10 @@
   each reading of the clock, so the time counts the device's work and not
   only its enqueueing.
 
-grl_tpu's ``enable_compilation_cache`` and ``descriptor_compiler_options``
-tune XLA and have no counterpart here.
+It also holds the card's peaks, which ``chip_smoke.py`` and
+``tools/profile_train_step.py`` compute their bounds and roofline shares
+against. grl_tpu's ``enable_compilation_cache`` and
+``descriptor_compiler_options`` tune XLA and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,6 +22,12 @@ import os
 import time
 
 import torch
+
+# NVIDIA H100 80GB HBM3 (SXM5, 700 W) data sheet: dense bf16 on the tensor
+# cores, fp32 outside them, and device memory bandwidth
+PEAK_BF16_OPS = 989e12
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 @contextlib.contextmanager
