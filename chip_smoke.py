@@ -172,7 +172,24 @@ descriptor), with seeded random weights. Phases:
     traced steps each, with ``--roofline convolution``: the kernel
     categories sum to the kernel total, ``--report-only`` on the saved
     trace prints the same tables, a convolution row carries the profiler's
-    flops.
+    flops;
+28. ``entry`` (after the slice): ``grl_tpu_torch.entry.entry()``, the
+    full-size eval-mode forward on its zero (2, 8, 256, 128, 3) clip pair:
+    output shapes, finite values, warm ms;
+29. ``dryrun`` (after ``rerank_sharded``): ``entry.dryrun_multichip(1)``
+    (one NCCL rank) and ``(2)`` (two gloo ranks sharing the card): each
+    rank's group step and sharded tail finite, its min-plus launches, its
+    re-ranking against the one-process builder with the plain min-sum;
+30. ``learning_equivalence`` (last): one fp32 seed of
+    ``tools.learning_equivalence`` at the recorded runs' schedule
+    (``cli.train -d mars`` in a subprocess on a fake-MARS tree of 256x128
+    JPEGs under ``build/chip_leq/``): the first-step loss within
+    ``LEQ_FIRST_LOSS``, evaluations at epochs 4 and 5, a finite final mAP,
+    printed beside the recorded runs' medians with the seed's seconds.
+
+In ``serve``, ``flow_serve`` and ``cli_bf16`` the artifact, which no
+longer keeps its zero example input, is held against the same program
+saved with it: bytes of each, answers bit-equal.
 
 The kernel is also timed at the serve route's shape (32 x 11598 x 11598),
 at one slab of the staged builder (1980 x 8192 x 19960) and at the short
@@ -202,7 +219,6 @@ import importlib.util
 import io
 import json
 import os
-import pickle
 import shutil
 import statistics
 import subprocess
@@ -215,6 +231,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from grl_tpu_torch import entry as hooks
 from grl_tpu_torch import models, ops, parallel, precision_flags, set_precision, set_precision_flags
 from grl_tpu_torch.cli import evaluate as cli_evaluate
 from grl_tpu_torch.cli import extract as cli_extract
@@ -233,6 +250,7 @@ from grl_tpu_torch.nn.norm import _GlobalBatchNormFn
 from grl_tpu_torch.ops.build import BUILD_INFO
 from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
+from grl_tpu_torch.tools import learning_equivalence as leq
 from grl_tpu_torch.tools import make_fake_duke, make_fake_mars, prepare_real_data, profile_train_step
 from grl_tpu_torch.utils import AsyncCheckpointer, load_train_state, serialization
 # the card's peaks (H100 SXM data sheet): dense bf16 on the tensor cores,
@@ -312,6 +330,13 @@ FAKE_DIR, DUKE_RUN, PROFILE_DIR = BUILD / "chip_fake", BUILD / "chip_duke_run", 
 # the profile phase: the bf16 training step at the reference batch and the
 # bf16 descriptor at bench.py's micro-batch, 3 traced steps each
 PROFILES = (("train", 16), ("describe", 96))
+# the learning check: one fp32 seed at the recorded runs' schedule
+# (docs/leq_r5/summary.json); every recorded first-step loss lies in
+# 20.8-21.4, median 21.1, and the port's must lie within 1.0 of that median
+LEQ_DIR = BUILD / "chip_leq"
+LEQ_ARGS = ["--seeds", "0", "--epochs", "6", "--lr-step", "2"]
+LEQ_FIRST_LOSS = (20.1, 22.1)
+DRYRUN_RANKS = (1, 2)  # dryrun_multichip's group sizes: one NCCL rank, two gloo ranks sharing the card
 # parameters no loss term reaches: they move by weight decay alone
 UNREACHED = ("siamese.featV.", "siamese.featV_bn.", "siamese_uncorr.classifierlinear.",
              "siamese_uncorr.classifierBN.")
@@ -1819,6 +1844,7 @@ def phase_flow_serve(ckpt, gen, device="cuda", extra=(), geo=SERVE):
     with torch.inference_mode():
         want = make_descriptor_fn(cnn.eval(), sia.eval())(torch.from_numpy(clips).to(device)).cpu().numpy()
     del state, cnn, sia, unc
+    artifact = artifact_check(model, clips, device)
     sock = str(FLOW_RUN / "d.sock")
     if len(sock) > 100:  # AF_UNIX paths are short
         sock = os.path.relpath(sock)
@@ -1835,7 +1861,7 @@ def phase_flow_serve(ckpt, gen, device="cuda", extra=(), geo=SERVE):
     desc_err = float(np.abs(got - want).max())
     log("flow_serve", queries=int(qf.shape[0]), gallery=int(gf.shape[0]), features_s=features_s,
         rank_launches=rank_launches, vs_plain_min_sum=agree, export_seconds=export_s, meta=meta,
-        artifact_bytes=model.stat().st_size, describe_clips=b, describe_seconds=describe_s,
+        artifact_bytes=model.stat().st_size, artifact=artifact, describe_clips=b, describe_seconds=describe_s,
         describe_vs_modules_max_abs=desc_err, three_channel_refusal=refused)
     if torch.device(device).type == "cuda":
         check(rank_launches == 1, f"rank --rerank on flow features launched the kernel {rank_launches} times")
@@ -1977,55 +2003,11 @@ def phase_rerank_staged(device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6
     return staged_info["launches"], staged_info, staged
 
 
-def _gloo_rank(rank, job, payload, device, store_path, result_path):
-    """One rank of ``gloo_ranks``: the group, ``job(mesh, payload)``, its
-    result pickled to ``result_path``."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    else:
-        torch.set_num_threads(1)
-    store = torch.distributed.FileStore(store_path, SHARDED_RANKS)
-    torch.distributed.init_process_group("gloo", store=store, rank=rank, world_size=SHARDED_RANKS)
-    try:
-        set_precision()
-        result = job(parallel.Mesh(rank, SHARDED_RANKS, device, store=store), payload)
-        with open(result_path.format(rank=rank), "wb") as f:
-            pickle.dump(result, f)
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-def gloo_ranks(job, payload, device="cuda:0", timeout=600):
-    """``job(mesh, payload)`` on ``SHARDED_RANKS`` new processes grouped
-    over gloo, every rank on ``device`` (NCCL refuses two ranks on one
-    card; gloo takes CUDA tensors as they are). Returns the ranks' results
-    in rank order; raises when a rank fails or at ``timeout``."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    SHARDED_DIR.mkdir(parents=True, exist_ok=True)
-    run = f"{os.getpid()}-{time.monotonic_ns()}"
-    store_path = str(SHARDED_DIR / f"store-{run}")
-    result_path = str(SHARDED_DIR / f"rank{{rank}}-{run}.pkl")
-    procs = [ctx.Process(target=_gloo_rank, args=(r, job, payload, str(device), store_path, result_path))
-             for r in range(SHARDED_RANKS)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    try:
-        for p in procs:
-            p.join(timeout=max(deadline - time.monotonic(), 0))
-            check(p.exitcode is not None, f"gloo rank {p.name} did not finish in {timeout} s")
-            check(p.exitcode == 0, f"gloo rank {p.name} exited with {p.exitcode}")
-        out = []
-        for r in range(SHARDED_RANKS):
-            with open(result_path.format(rank=r), "rb") as f:
-                out.append(pickle.load(f))
-        return out
-    finally:
-        for p in procs:
-            if p.exitcode is None:
-                p.kill()
-                p.join()
+def sharded_rank(opts):
+    """One rank of the sharded phases (``parallel.launch`` over gloo): its
+    mesh, the precision policy, ``sharded_rank_job``."""
+    set_precision()
+    return sharded_rank_job(parallel.data_mesh(), opts)
 
 
 def sharded_rank_job(mesh, opts):
@@ -2110,8 +2092,9 @@ def slab_bounds(shape):
 
 def phase_sharded(staged, staged_info, device="cuda", staged_shape=(STAGED_Q, STAGED_EXTRA_G, 6144), frame=FRAME,
                   tiny=False):
-    """``rerank_sharded`` and ``eval_sharded``: two gloo ranks on this card
-    (``gloo_ranks``). ``rerank_sharded``: the row-sharded builder on
+    """``rerank_sharded`` and ``eval_sharded``: two gloo ranks sharing this
+    card (``parallel.launch`` groups ranks that outnumber the cards over
+    gloo: NCCL refuses two ranks on one card). ``rerank_sharded``: the row-sharded builder on
     ``rerank_staged``'s features, held to the one-card staged result
     ``staged``, each rank's peak memory beside the one-card staged peak,
     its launches and slab shapes, each slab shape held to the plain
@@ -2124,8 +2107,9 @@ def phase_sharded(staged, staged_info, device="cuda", staged_shape=(STAGED_Q, ST
     staged_path = str(SHARDED_DIR / "staged.npy")
     np.save(staged_path, staged.cpu().numpy())
     t0 = time.perf_counter()
-    ranks = gloo_ranks(sharded_rank_job, {"staged_path": staged_path, "staged_shape": list(staged_shape),
-                                          "frame": list(frame), "tiny": tiny}, "cuda:0" if cuda else "cpu")
+    ranks = parallel.launch(sharded_rank, {"staged_path": staged_path, "staged_shape": list(staged_shape),
+                                           "frame": list(frame), "tiny": tiny}, SHARDED_RANKS, device,
+                            workdir=SHARDED_DIR, timeout=600)
     seconds = time.perf_counter() - t0
     n = staged_shape[0] * 2 + staged_shape[1]
     rr = [r["rerank"] for r in ranks]
@@ -2317,6 +2301,7 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
         want = torch.cat([describe(torch.from_numpy(clips[i : i + b]).to(device))
                           for i in range(0, len(clips), b)]).cpu().numpy()
     del state, cnn, sia, unc
+    artifact = artifact_check(model, clips[:b], device)
 
     feats = unit_rows(geo["gallery"] + geo["add"] + geo["queries"], dim, device, gen).cpu().numpy()
     gallery, added, queries = np.split(feats, [geo["gallery"], geo["gallery"] + geo["add"]])
@@ -2409,7 +2394,8 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
             for name, rr in (("padded", rr_padded), ("staged", rr_staged))}
     staged_vs_padded = {"matches_equal": bool(np.array_equal(rr_staged[0], rr_padded[0])),
                         "max_abs_diff": float(np.abs(rr_staged[1] - rr_padded[1]).max())}
-    log("serve", export_s=export_s, artifact_bytes=model.stat().st_size, export_batch=b, frames=geo["seq_len"],
+    log("serve", export_s=export_s, artifact_bytes=model.stat().st_size, artifact=artifact, export_batch=b,
+        frames=geo["seq_len"],
         frame=list(geo["frame"]), describe_clips=len(clips), describe_s=describe_s,
         describe_clips_per_s=len(clips) / describe_s, describe_max_abs_diff=desc_err,
         concurrent_describe_max_abs_diff=conc_err, describe_batching=stats["describe_batching"],
@@ -2534,6 +2520,7 @@ def phase_cli_bf16(gen, device="cuda", extra=(), geo=SERVE):
     with torch.inference_mode():
         want = make_descriptor_fn(cnn.eval(), sia.eval())(torch.from_numpy(clips).to(device)).cpu().numpy()
     del state, cnn, sia, unc
+    out["artifact"] = artifact_check(model, clips, device)
     sock = str(logs / "d.sock")
     if len(sock) > 100:  # AF_UNIX paths are short
         sock = os.path.relpath(sock)
@@ -2588,6 +2575,121 @@ def phase_extract_cli(device="cuda", extra=()):
     return launches
 
 
+def artifact_with_example(model, device):
+    """``model``'s program saved as ``export-model`` saved it before the
+    example input was cleared: the same program with its zero example
+    batch (the meta's shape) kept. Returns ``(path, bytes of the new
+    program, bytes of the old one, bytes of the example)``."""
+    with np.load(model, allow_pickle=False) as z:
+        blob, meta_json = z["exported"].tobytes(), str(z["meta"])
+    meta = json.loads(meta_json)
+    shape = (meta["batch"], meta["seq_len"], meta["height"], meta["width"], meta["channels"])
+    program = torch.export.load(io.BytesIO(blob))
+    program.example_inputs = ((torch.zeros(shape, dtype=torch.uint8, device=device),), {})
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    old = Path(model).with_name(Path(model).stem + "_with_example.npz")
+    np.savez(old, exported=np.frombuffer(buf.getvalue(), np.uint8), meta=meta_json)
+    return old, len(blob), len(buf.getvalue()), int(np.prod(shape))
+
+
+def artifact_check(model, clips, device):
+    """The artifact without its example input against the same program with
+    it: bytes of each and the answers of both (``_load_artifact``'s call on
+    one batch of ``clips``), which must be bit-equal."""
+    old, new_bytes, old_bytes, example_bytes = artifact_with_example(model, device)
+    answers = [cli_extract._load_artifact(str(path), device)[0](clips) for path in (old, model)]
+    out = {"program_bytes": new_bytes, "with_example_program_bytes": old_bytes, "example_bytes": example_bytes,
+           "bytes_dropped": old_bytes - new_bytes, "file_bytes": Path(model).stat().st_size,
+           "with_example_file_bytes": old.stat().st_size,
+           "answers_bit_equal": answers[0].dtype == answers[1].dtype and answers[0].tobytes() == answers[1].tobytes()}
+    old.unlink()
+    check(out["answers_bit_equal"], f"artifact without the example input answers otherwise: {out}")
+    check(out["bytes_dropped"] >= example_bytes, f"artifact did not drop its example input: {out}")
+    return out
+
+
+def phase_entry(device="cuda"):
+    """``grl_tpu_torch.entry.entry``: the full-size eval-mode forward on its
+    zero clip pair, output shapes, finite values, warm ms."""
+    module, (clips,) = hooks.entry(device)
+    with torch.inference_mode():
+        out = module(clips)
+        ms = cuda_ms(lambda: module(clips), 5) if torch.device(device).type == "cuda" else None
+    shapes = [list(o.shape) for o in out]
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    log("entry", example=list(clips.shape), example_dtype=str(clips.dtype), device=str(clips.device),
+        out_shapes=shapes, finite=finite, warm_ms=ms)
+    check(shapes == [[2, 2048], [2, 8, 2048]], f"entry forward shapes {shapes}")
+    check(finite and clips.device.type == torch.device(device).type, "entry forward not finite or off the device")
+    del module, clips, out
+    empty_cache(device)
+
+
+def phase_dryrun(device="cuda", counts=DRYRUN_RANKS):
+    """``grl_tpu_torch.entry.dryrun_multichip(n)`` for each ``n``: every rank
+    finite, its min-plus launches (each rank counts its own from zero), and
+    its re-ranking held against the one-process builder with the plain
+    min-sum on the same inputs."""
+    cuda = torch.device(device).type == "cuda"
+    launches = {}
+    for n in counts:
+        zero_launches()
+        t0 = time.perf_counter()
+        ranks = hooks.dryrun_multichip(n, device, timeout=600)
+        seconds = time.perf_counter() - t0
+        _, _, feats, _ = hooks.dryrun_data(n)
+        f = torch.from_numpy(feats).to(device)
+        d = -(f @ f.T)
+        plain = re_ranking(d[:n, n:], d[:n, :n], d[n:, n:], k1=hooks.RERANK_K[0], k2=hooks.RERANK_K[1],
+                           min_sum_fn=ops.minplus_plain).cpu().numpy()
+        rows = [{"rank": r["rank"], "device": r["device"], "backend": r["backend"], "loss": r["loss"],
+                 "mAP": r["mAP"], "launches": r["launches"]["minplus"],
+                 "rerank_vs_plain_max_abs_diff": float(np.abs(r["rerank"] - plain).max())} for r in ranks]
+        launches[f"dryrun_{n}"] = [r["launches"] for r in rows]
+        log("dryrun", ranks=n, seconds=seconds, per_rank=rows)
+        check(len(rows) == n and all(np.isfinite(r["loss"]) and np.isfinite(r["mAP"]) for r in rows),
+              f"dryrun_multichip({n}) results {rows}")
+        for r in rows:
+            check(r["rerank_vs_plain_max_abs_diff"] <= KERNEL_TOL, f"dryrun_multichip({n}) rank {r['rank']} "
+                  f"re-ranking, kernel vs plain min-sum: {r['rerank_vs_plain_max_abs_diff']}")
+            if cuda:
+                check(r["launches"] > 0, f"dryrun_multichip({n}) rank {r['rank']} did not launch the min-plus kernel")
+    return launches
+
+
+def phase_learning_equivalence(device="cuda", extra=(), frame=FRAME, argv=LEQ_ARGS, first_loss=LEQ_FIRST_LOSS):
+    """One seed of ``tools/learning_equivalence.py`` at the recorded runs'
+    schedule (the port's ``cli.train -d mars`` in a subprocess, on a fake-MARS
+    tree): the first-step loss within ``first_loss``, evaluations at the
+    recorded epochs, a finite final mAP; the final mAP and rank-1 beside the
+    recorded medians (one seed is not a verdict: no gate on them)."""
+    shutil.rmtree(LEQ_DIR, ignore_errors=True)
+    args = leq.build_parser().parse_args(["--out", str(LEQ_DIR), "--device", device, *argv])
+    t0 = time.perf_counter()
+    tree = leq.build_tree(args, frame=frame)
+    tree_s = time.perf_counter() - t0
+    run = leq.run_torch(args, tree, args.seeds[0], extra=extra)
+    summary = leq.summarize(args)
+    recorded = {side: {k: summary[side][k]["median"] for k in ("final_mAP", "final_rank1", "first_step_loss")}
+                | {"steps": len(json.loads((Path(args.recorded) / f"{side}_seed0.json").read_text())["loss_steps"])}
+                for side in ("ref", "grl")}
+    first = run["loss_steps"][0][1] if run["loss_steps"] else float("nan")
+    final = run["evals"][-1] if run["evals"] else {}
+    log("learning_equivalence", seed=run["seed"], seconds_per_seed=run["wall_s"], tree_seconds=tree_s,
+        steps=len(run["loss_steps"]), first_step_loss=first, first_step_loss_band=first_loss,
+        epoch_losses=run["epoch_losses"], evals=run["evals"], final_mAP=final.get("mAP"),
+        final_rank1=final.get("rank1"), recorded_medians=recorded)
+    if first_loss is not None:
+        check(first_loss[0] <= first <= first_loss[1], f"first-step loss {first} outside {first_loss}")
+    check([e["epoch"] for e in run["evals"]] == leq.eval_epochs(args.epochs),
+          f"evaluations at epochs {[e['epoch'] for e in run['evals']]}, expected {leq.eval_epochs(args.epochs)}")
+    check(np.isfinite(final.get("mAP", float("nan"))) and np.isfinite(final.get("rank1", float("nan"))),
+          f"final evaluation {final}")
+    check(all(np.isfinite(v) for _, v in run["loss_steps"]), "non-finite training loss")
+    return run
+
+
 def host_inventory():
     """What the machine offers the data plane and the scalar writer."""
     def version(name):
@@ -2625,6 +2727,7 @@ def main():
     launches = phase_slice(cnn, sia)
     del cnn, sia
     torch.cuda.empty_cache()
+    phase_entry()
     rates = phase_model_bf16(gen)
     phase_mars(gen)
     phase_train_check(gen)
@@ -2668,11 +2771,14 @@ def main():
     sharded_launches = phase_sharded(staged, staged_info)
     del staged
     torch.cuda.empty_cache()
+    dryrun_launches = phase_dryrun()
     serve_launches = phase_serve(gen)
     torch.cuda.empty_cache()
     rank_cli_launches = phase_extract_cli()
     torch.cuda.empty_cache()
     bf16_launches = phase_cli_bf16(gen)
+    torch.cuda.empty_cache()
+    phase_learning_equivalence()
 
     # launches on this slice's path (the sharded evaluation, summed over its
     # two ranks); every other path's count beside it
@@ -2688,8 +2794,9 @@ def main():
                                  "cli_bf16_evaluate": bf16_launches["evaluate"],
                                  "flow_train": flow_launches["train"], "flow_evaluate": flow_launches["evaluate"],
                                  "flow_rank_cli": flow_rank_launches, "dp_evaluate": dp_launches,
-                                 **{path: sum(n) for path, n in sharded_launches.items()}}
-    entry["launches_by_rank"] = sharded_launches
+                                 **{path: sum(n) for path, n in sharded_launches.items()},
+                                 **{path: sum(n) for path, n in dryrun_launches.items()}}
+    entry["launches_by_rank"] = sharded_launches | dryrun_launches
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [entry]}))

@@ -191,6 +191,10 @@ def export_model(args):
     example = torch.zeros((args.batch, args.seq_len, args.height, args.width, channels),
                           dtype=torch.uint8, device=device)
     program = torch.export.export(_DescriptorProgram(cnn, siamese).eval(), (example,))
+    # the saved program keeps its example inputs unless they are cleared: a
+    # zero batch as large as a request (25.2 MB at batch 32 x 8 x 256x128
+    # RGB). The program's signature and ``meta`` carry the shapes.
+    program.example_inputs = None
     buf = io.BytesIO()
     torch.export.save(program, buf)
     blob = buf.getvalue()
@@ -265,18 +269,43 @@ def _artifact_chunks(clips, batch):
         yield chunk, size
 
 
+class _DeviceLock:
+    """The coalescer's device lock: held by the thread that leads a
+    dispatch. Its state lives under the coalescer's condition, so a release
+    wakes every waiter at once: the ones whose rows the dispatch carried
+    return, and one of the rest leads the next."""
+
+    def __init__(self, cv):
+        self._cv = cv
+        self.busy = False
+
+    def acquire(self, blocking=True):
+        with self._cv:
+            if blocking:
+                self._cv.wait_for(lambda: not self.busy)
+            elif self.busy:
+                return False
+            self.busy = True
+            return True
+
+    def release(self):
+        with self._cv:
+            self.busy = False
+            self._cv.notify_all()
+
+
 class _DescribeCoalescer:
     """Cross-request descriptor batching for the serve daemon.
 
     Concurrent connections' clips pack into shared device dispatches of
     the artifact's batch width, with no timers and no background thread:
-    whichever waiter takes the device lock first leads a dispatch, draining
-    queued work FIFO up to the batch width; everyone else either sees their
-    rows arrive or leads the next dispatch. A lone request therefore
-    dispatches immediately with exactly the sequential path's chunking and
-    padding (bit-identical results, no added latency when idle); under
-    concurrent load, small requests share batches instead of each paying a
-    padded dispatch.
+    whichever waiter finds the device free first leads a dispatch, draining
+    queued work FIFO up to the batch width; everyone else sleeps until a
+    dispatch ends, then either has their rows or leads the next dispatch.
+    A lone request therefore dispatches immediately with exactly the
+    sequential path's chunking and padding (bit-identical results, no added
+    latency when idle); under concurrent load, small requests share batches
+    instead of each paying a padded dispatch.
     """
 
     def __init__(self, call, batch):
@@ -285,7 +314,9 @@ class _DescribeCoalescer:
         self._call, self._batch = call, batch
         self._q = []
         self._qlock = threading.Lock()
-        self._device = threading.Lock()
+        # one condition for the queue, the device and every waiter's rows
+        self._cv = threading.Condition(self._qlock)
+        self._device = _DeviceLock(self._cv)
         # observability (reported by the daemon's stats op)
         self.dispatches = 0   # device calls issued
         self.clips = 0        # valid clips described
@@ -303,15 +334,19 @@ class _DescribeCoalescer:
         with self._qlock:
             self._q.extend(items)
         for item in items:
-            while not item["done"].is_set():
-                # lead a dispatch (of the FIFO head, not necessarily of
-                # this item) or wait for one to finish
-                if self._device.acquire(timeout=0.05):
-                    try:
-                        if not item["done"].is_set():
-                            self._lead()
-                    finally:
-                        self._device.release()
+            while True:
+                # sleep until this item's dispatch ends or the device is
+                # free; then return, or lead a dispatch (of the FIFO head,
+                # not necessarily of this item)
+                with self._cv:
+                    self._cv.wait_for(lambda: item["done"].is_set() or not self._device.busy)
+                    if item["done"].is_set():
+                        break
+                    self._device.busy = True
+                try:
+                    self._lead()
+                finally:
+                    self._device.release()
         for item in items:
             if item["err"] is not None:
                 raise item["err"]

@@ -106,7 +106,10 @@ class _FusedGlobalBatchNormFn(torch.autograd.Function):
         count = mean.new_full((1,), x.numel() // x.shape[1])
         local = torch.cat([mean, invstd, count])
         every = local.new_empty(dist.get_world_size() * local.numel())
-        dist.all_gather_into_tensor(every, local)
+        if dist.get_backend() == "gloo":  # ranks sharing a card (parallel.init_group)
+            dist.all_gather(list(every.view(dist.get_world_size(), -1).unbind()), local)
+        else:
+            dist.all_gather_into_tensor(every, local)
         c = mean.numel()
         every = every.view(-1, 2 * c + 1)
         counts = every[:, -1]

@@ -4,7 +4,8 @@
 so each starts clean), rank i on ``cuda:i`` over NCCL, or over gloo when
 ``device`` is the CPU; with ``here``, this process joins as rank 0 and
 runs ``here()`` (a daemon keeps its own stdin, streams and signal
-handling), and the new processes are ranks 1 to n-1. The rendezvous is a
+handling), and the new processes are ranks 1 to n-1. More CUDA ranks
+than cards share them over gloo (``init_group``). The rendezvous is a
 ``FileStore`` in a fresh directory (no port to pick or race for). The parent forwards SIGTERM and
 SIGINT to every rank, waits for them all, and raises as soon as one exits
 non-zero (the others are killed: they would wait forever in a collective),

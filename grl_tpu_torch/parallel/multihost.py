@@ -37,13 +37,22 @@ def init_group(rank, world_size, device="cuda", store=None, multihost=False, loc
 
     NCCL over ``cuda:local_rank`` (default ``rank``) when ``device`` is a
     CUDA device, gloo on the CPU; a gloo group beside NCCL carries the
-    host-side values. A group that fails to form raises."""
+    host-side values. Ranks of one host that outnumber its cards (no
+    ``local_rank``, ``world_size`` above the card count) share the cards
+    over gloo instead, rank r on ``cuda:(r mod cards)``: NCCL refuses two
+    ranks on one card, and gloo takes CUDA tensors as they are. A group
+    that fails to form raises."""
     device = torch.device(device)
     kwargs = dict(store=store, rank=rank, world_size=world_size, timeout=GROUP_TIMEOUT)
-    if device.type == "cuda":
+    nccl = device.type == "cuda"
+    if nccl:
+        cards = torch.cuda.device_count()
         index = rank if local_rank is None else local_rank
+        if local_rank is None and world_size > cards:
+            nccl, index = False, index % cards
         torch.cuda.set_device(index)
         device = torch.device("cuda", index)
+    if nccl:
         dist.init_process_group("nccl", device_id=device, **kwargs)
         host_group = dist.new_group(backend="gloo", timeout=GROUP_TIMEOUT)
     else:

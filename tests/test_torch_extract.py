@@ -175,6 +175,151 @@ def test_coalescer_cases_of_grl_tpu_hold_for_the_port(case, monkeypatch):
     getattr(C, case)()
 
 
+def _export_keeping_the_example(art, out):
+    """``export-model`` as it was before it cleared the example input: the
+    same checkpoint, flags and export, saved with the zero example batch."""
+    args = T.build_parser().parse_args(["--device", "cpu", "export-model", "--checkpoint", art.ckpt, *EXPORT,
+                                        "-o", out])
+    cnn, siamese = T._load_models(args, args.num_classes, torch.device("cpu"))
+    example = torch.zeros((args.batch, args.seq_len, args.height, args.width, 3), dtype=torch.uint8)
+    program = torch.export.export(T._DescriptorProgram(cnn, siamese).eval(), (example,))
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    with np.load(art.port) as z:
+        meta = str(z["meta"])
+    np.savez(out, exported=np.frombuffer(buf.getvalue(), np.uint8), meta=meta)
+    return example.numel()
+
+
+def test_artifact_drops_its_example_input_and_answers_bit_equal(art):
+    """The artifact no longer carries the zero example batch: its program is
+    smaller than the one saved with it by the batch's bytes (and a little
+    of its record), loads with no example inputs, keeps the shapes in its
+    meta, and answers bit-equal to it through ``describe`` and the daemon."""
+    old = art.path("port_with_example.npz")
+    example_bytes = _export_keeping_the_example(art, old)
+    assert example_bytes == 4 * 2 * 64 * 32 * 3
+    blobs = {}
+    for name, path in (("old", old), ("new", art.port)):
+        with np.load(path) as z:
+            blobs[name] = z["exported"].tobytes()
+            assert json.loads(str(z["meta"]))["batch"] == 4  # the shapes stay in the meta
+    dropped = len(blobs["old"]) - len(blobs["new"])
+    assert example_bytes <= dropped <= example_bytes + 16384, (dropped, example_bytes)
+    assert torch.export.load(io.BytesIO(blobs["new"])).example_inputs is None
+    assert torch.export.load(io.BytesIO(blobs["old"])).example_inputs[0][0].shape == (4, 2, 64, 32, 3)
+
+    feats = {}
+    for name, path in (("old", old), ("new", art.port)):
+        out = art.path(f"c3_{name}.npz")
+        port_main("describe", "--model", path, "--clips", art.path("clips.npz"), "-o", out)
+        (desc,) = [r for r in port_serve(["--model", path], [{"op": "describe", "clips": art.path("clips.npz"),
+                                                              "out": art.path(f"c3_{name}_d.npz")}])
+                   if r["op"] == "describe"]
+        assert desc["ok"] and desc["n"] == 6
+        feats[name] = np.load(out)["features"], np.load(art.path(f"c3_{name}_d.npz"))["features"]
+    for got, want in zip(feats["new"], feats["old"]):
+        assert got.dtype == want.dtype == np.float32 and got.tobytes() == want.tobytes()
+
+
+def _clip_call(calls, lock, seconds=0.0):
+    """A fake artifact call: records each dispatched chunk and 'describes'
+    a (k, 1, 1, 1, 3) clip as its pixel values x 2 (routing mistakes show)."""
+    import time
+
+    def call(chunk):
+        with lock:
+            calls.append(np.array(chunk))
+        time.sleep(seconds)
+        return chunk.reshape(chunk.shape[0], -1).astype(np.float32) * 2
+
+    return call
+
+
+def _clip(v):
+    return np.full((1, 1, 1, 1, 3), v, np.uint8)
+
+
+@pytest.mark.parametrize("batch", [4, 8])
+def test_coalescer_packs_six_threads_as_grl_tpu_s(batch):
+    """Six threads' one-clip requests queued while the device is busy:
+    the port's coalescer and grl_tpu's dispatch the same FIFO packs with
+    the same counters, every thread gets its own rows; then six threads x
+    eight requests free-running: every answer its own, the counters
+    consistent with the dispatches made."""
+    import threading
+    import time
+
+    packs = {}
+    for name, cls in (("port", T._DescribeCoalescer), ("jax", J._DescribeCoalescer)):
+        calls, lock, out = [], threading.Lock(), {}
+        co = cls(_clip_call(calls, lock), batch=batch)
+        co._device.acquire()
+        try:
+            threads = [threading.Thread(target=lambda v=v: out.update({v: co.describe(_clip(v))}))
+                       for v in range(1, 7)]
+            for i, t in enumerate(threads):
+                t.start()
+                deadline = time.time() + 10
+                while True:  # queue in thread order, so FIFO is the threads' order
+                    with co._qlock:
+                        if len(co._q) == i + 1:
+                            break
+                    assert time.time() < deadline, "waiter never queued"
+                    time.sleep(0.002)
+        finally:
+            co._device.release()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        for v in range(1, 7):
+            np.testing.assert_array_equal(out[v], np.full((1, 3), 2.0 * v))
+        packs[name] = [[int(c[i, 0, 0, 0, 0]) for i in range(c.shape[0])] for c in calls], co.snapshot()
+    assert packs["port"] == packs["jax"]
+    assert packs["port"][0][0][:min(batch, 6)] == list(range(1, min(batch, 6) + 1))
+
+    calls, lock = [], threading.Lock()
+    co = T._DescribeCoalescer(_clip_call(calls, lock, seconds=0.002), batch=batch)
+    errors = []
+
+    def client(i):
+        for j in range(8):
+            v = 1 + i * 8 + j
+            got = co.describe(_clip(v))
+            if not np.array_equal(got, np.full((1, 3), 2.0 * v)):
+                errors.append((v, got))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errors
+    snap = co.snapshot()
+    assert snap["clips"] == 48 and snap["dispatches"] == len(calls)
+    assert all(c.shape[0] == batch for c in calls)
+    assert snap["packed"] == sum(int(np.count_nonzero(c[:, 0, 0, 0, 0])) > 1 for c in calls)
+    assert sorted(int(v) for c in calls for v in c[:, 0, 0, 0, 0] if v) == list(range(1, 49))
+
+
+def test_coalescer_lone_request_is_the_sequential_path_bit_for_bit():
+    """One request alone: the same padded chunks and the same bytes as
+    ``_describe_chunked``, for sizes around the batch width."""
+    import threading
+
+    rng = np.random.RandomState(0)
+    lock = threading.Lock()
+    for n in (1, 3, 4, 5, 9):
+        clips = rng.randint(0, 256, (n, 1, 1, 1, 3), np.uint8)
+        calls, seq = [], []
+        co = T._DescribeCoalescer(_clip_call(calls, lock), batch=4)
+        got = co.describe(clips)
+        want = T._describe_chunked(_clip_call(seq, lock), {"batch": 4}, clips)
+        assert got.dtype == want.dtype == np.float32 and got.tobytes() == want.tobytes()
+        assert [c.tobytes() for c in calls] == [c.tobytes() for c in seq]
+        assert co.snapshot() == {"dispatches": len(seq), "clips": n, "packed": 0}
+
+
 def test_serve_every_op_with_error_isolation(art):
     """Every op over stdin/stdout; bad requests get ``ok: false`` and the
     loop goes on; an oversize line is drained and answered; nothing is

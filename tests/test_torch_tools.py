@@ -71,7 +71,9 @@ def test_make_random_checkpoint_reads_in_both_packages(tmp_path):
 def test_measure_serve_concurrency_prints_its_line(clients, rank_every):
     """A tiny artifact, one daemon in the tool's process: the same number of
     one-clip requests in turn and from ``clients`` connections; the
-    concurrent run packs clips of several requests into one dispatch."""
+    concurrent run packs clips of several requests into one dispatch; each
+    phase's coalescer timeline, a second pass with the probe on, accounts
+    for every dispatch and request of that pass."""
     report = last_json(tool("measure_serve_concurrency", "--device", "cpu", "--clients", str(clients), "--reps", "3",
                             "--batch", "4", "--seq_len", "2", "--rank-every", str(rank_every)))
     assert report["device"] == "cpu" and report["total_clips"] == clients * 3
@@ -79,6 +81,16 @@ def test_measure_serve_concurrency_prints_its_line(clients, rank_every):
     assert seq["clips"] == conc["clips"] == clients * 3 and seq["packed"] == 0
     assert conc["packed"] > 0 and conc["dispatches"] < seq["dispatches"]
     assert report["dispatch_reduction"] > 1 and seq["wall_s"] > 0 and conc["wall_s"] > 0
+    # the timeline: one call and one lead per dispatch, every request's wait
+    # and hand-off, one turnaround less per connection than its requests
+    for ph, connections in ((seq, 1), (conc, clients)):
+        t = ph["timeline"]
+        assert t["clips"] == clients * 3 and t["wall_s"] > 0 and "timeline" not in t
+        assert t["dispatch_s"]["n"] == t["dispatch_cpu_s"]["n"] == t["lead_s"]["n"] == t["dispatches"]
+        assert t["gap_s"]["n"] == t["dispatches"] - 1
+        assert t["wait_s"]["n"] == t["handoff_s"]["n"] == clients * 3
+        assert t["turnaround_s"]["n"] == clients * 3 - connections
+        assert 0 <= t["handoff_s"]["max"] and t["dispatch_s"]["max"] <= t["lead_s"]["max"]
 
 
 def test_rehearse_mars_scale_prints_its_line(tmp_path):
