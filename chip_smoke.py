@@ -187,9 +187,22 @@ descriptor), with seeded random weights. Phases:
     ``LEQ_FIRST_LOSS``, evaluations at epochs 4 and 5, a finite final mAP,
     printed beside the recorded runs' medians with the seed's seconds.
 
+31. ``bench`` (after ``model_bf16``): ``python -m grl_tpu_torch.bench`` in a
+    subprocess, as a user runs it: one JSON line with the root bench.py's
+    eight keys, both rates finite and above 0; then ``bench_sweep``, the
+    bf16 descriptor's clips/s and peak memory at micro-batch 32, 64, 96,
+    128 and 192. ``profile_op_links`` (in ``profile``): the ops around the
+    launches of the descriptor's clamp and BatchNorm kernels.
+
 In ``serve``, ``flow_serve`` and ``cli_bf16`` the artifact, which no
 longer keeps its zero example input, is held against the same program
-saved with it: bytes of each, answers bit-equal.
+saved with it: bytes of each, answers bit-equal. Its call on the card
+replays one CUDA graph: on two different batches in a row it is held to
+the eager program within ``GRAPH_TOL`` (expected bit-equal), the first
+answer must survive the second call, ``replays`` must count both, and over
+each daemon's requests the graph's replays must equal the coalescer's
+dispatches; the load seconds, the graph pool's bytes and the program's op
+nodes are logged.
 
 The kernel is also timed at the serve route's shape (32 x 11598 x 11598),
 at one slab of the staged builder (1980 x 8192 x 19960) and at the short
@@ -212,6 +225,7 @@ before any phase.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import faulthandler
@@ -219,6 +233,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -231,6 +246,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from grl_tpu_torch import bench
 from grl_tpu_torch import entry as hooks
 from grl_tpu_torch import models, ops, parallel, precision_flags, set_precision, set_precision_flags
 from grl_tpu_torch.cli import evaluate as cli_evaluate
@@ -311,7 +327,8 @@ TRAIN_TOL_FP32 = {"loss": 1e-3, "all_l2": 0.1, "bn": 5e-3, "lut": 5e-4}
 TRAIN_LR = step_decay_lr(1e-3, 0)  # the reference's base lr, epoch 0
 FRAME = (256, 128)  # the reference's clip frames (config.py)
 # the CLI phases' working directories (``.gitignore`` lists build/)
-BUILD = Path(__file__).resolve().parent / "build"
+ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build"
 CLI_DIR = BUILD / "chip_cli"
 SHARDED_DIR = BUILD / "chip_sharded"
 SYNTH_IDS = 32  # train ids of the CLI phases' synthetic catalog (= the checkpoint's classes)
@@ -1615,6 +1632,28 @@ def phase_cli_duke(root, device="cuda", extra=()):
     return launches
 
 
+PROFILE_LINKS = r"clamp|batch_norm|bn_fw|relu"  # kernels whose launching ops the describe profile names
+
+
+def op_links(trace, pattern, steps, top=10):
+    """Device kernels of ``trace`` whose name matches ``pattern``, by kernel
+    and the chain of ops around its launch (innermost first, 3 deep):
+    ``[kernel, ops, launches per step, ms per step]``."""
+    rows = {}
+    for name, us, _cat, op in trace.device:
+        if not re.search(pattern, name):
+            continue
+        chain = []
+        while op is not None and len(chain) < 3:
+            chain.append(op.name)
+            op = op.parent
+        row = rows.setdefault((name[:80], " < ".join(chain) or "(no op)"), [0, 0.0])
+        row[0] += 1
+        row[1] += us
+    return sorted(([k, ops_, n / steps, us / 1e3 / steps] for (k, ops_), (n, us) in rows.items()),
+                  key=lambda r: -r[3])[:top]
+
+
 def phase_profile(programs=PROFILES, extra=()):
     """``tools.profile_train_step`` in this process: each program traced for
     3 steps and reported by kernel category with the convolutions'
@@ -1648,6 +1687,10 @@ def phase_profile(programs=PROFILES, extra=()):
             top_kernels=res["top"][:5], convolution_rows=conv,
             flops_ops=[meta["flops_ops"], meta["flops_ops_matched"]], nvidia_smi=meta.get("nvidia_smi"),
             dtype=meta["compute_dtype"])
+        if program == "describe":
+            # which ops launch the descriptor's clamps and BatchNorm's kernels
+            log("profile_op_links", program=program, batch=batch,
+                links=op_links(profile_train_step.Trace(str(logdir / "trace.json")), PROFILE_LINKS, meta["steps"]))
         check(res["on_device"] or not torch.cuda.is_available(), f"profile {program}: no device events")
         check(total > 0 and abs(cat_sum - total) <= 0.01 * total,
               f"profile {program}: categories sum to {cat_sum} ms of {total}")
@@ -1848,8 +1891,9 @@ def phase_flow_serve(ckpt, gen, device="cuda", extra=(), geo=SERVE):
     sock = str(FLOW_RUN / "d.sock")
     if len(sock) > 100:  # AF_UNIX paths are short
         sock = os.path.relpath(sock)
-    with daemon(["--model", str(model)], device, sock) as c:
+    with loaded_artifacts() as loaded, daemon(["--model", str(model)], device, sock) as c:
         ping = c.ping()
+        mark = dispatch_mark(c, loaded)
         t0 = time.perf_counter()
         got = c.describe(str(FLOW_RUN / "clips.npz"))["features"]
         describe_s = time.perf_counter() - t0
@@ -1858,8 +1902,9 @@ def phase_flow_serve(ckpt, gen, device="cuda", extra=(), geo=SERVE):
             refused = None
         except ServeError as e:
             refused = str(e)
+        graph = graph_dispatches(mark, dispatch_mark(c, loaded), loaded, device, "flow daemon")
     desc_err = float(np.abs(got - want).max())
-    log("flow_serve", queries=int(qf.shape[0]), gallery=int(gf.shape[0]), features_s=features_s,
+    log("flow_serve", graph=graph, queries=int(qf.shape[0]), gallery=int(gf.shape[0]), features_s=features_s,
         rank_launches=rank_launches, vs_plain_min_sum=agree, export_seconds=export_s, meta=meta,
         artifact_bytes=model.stat().st_size, artifact=artifact, describe_clips=b, describe_seconds=describe_s,
         describe_vs_modules_max_abs=desc_err, three_channel_refusal=refused)
@@ -2329,10 +2374,11 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
 
     padded, staged = {}, {}
     t0 = time.perf_counter()
-    with daemon(["--gallery", str(SERVE_DIR / "gallery.npz"), "--capacity", str(geo["capacity"]), *common],
-                device, sock) as c:
+    with loaded_artifacts() as loaded, daemon(["--gallery", str(SERVE_DIR / "gallery.npz"), "--capacity",
+                                               str(geo["capacity"]), *common], device, sock) as c:
         padded["ready_s"] = time.perf_counter() - t0
         ping = c.ping()
+        mark = dispatch_mark(c, loaded)
         check(ping["platform"] == torch.device(device).type and ping["rerank"] and not ping["rerank_staged"]
               and ping["gallery"] == geo["gallery"] and ping["rerank_queries"] == b, f"ping {ping}")
         t0 = time.perf_counter()
@@ -2346,6 +2392,7 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
         rr_padded = routes(c, padded)
         conc = concurrent_describes(f"unix:{sock}", [SERVE_DIR / "clips_5q.npz", SERVE_DIR / "clips_1q.npz"])
         conc_err = max(float(np.abs(f - want[: len(f)]).max()) for f in conc)
+        graph = graph_dispatches(mark, dispatch_mark(c, loaded), loaded, device, "serve")
         stats = c.stats()
         c.save(out=str(SERVE_DIR / "index.npz"))
     check(c.bye["ok"], "shutdown")
@@ -2394,7 +2441,7 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
             for name, rr in (("padded", rr_padded), ("staged", rr_staged))}
     staged_vs_padded = {"matches_equal": bool(np.array_equal(rr_staged[0], rr_padded[0])),
                         "max_abs_diff": float(np.abs(rr_staged[1] - rr_padded[1]).max())}
-    log("serve", export_s=export_s, artifact_bytes=model.stat().st_size, artifact=artifact, export_batch=b,
+    log("serve", export_s=export_s, artifact_bytes=model.stat().st_size, artifact=artifact, graph=graph, export_batch=b,
         frames=geo["seq_len"],
         frame=list(geo["frame"]), describe_clips=len(clips), describe_s=describe_s,
         describe_clips_per_s=len(clips) / describe_s, describe_max_abs_diff=desc_err,
@@ -2524,10 +2571,12 @@ def phase_cli_bf16(gen, device="cuda", extra=(), geo=SERVE):
     sock = str(logs / "d.sock")
     if len(sock) > 100:  # AF_UNIX paths are short
         sock = os.path.relpath(sock)
-    with daemon(["--model", str(model)], device, sock) as c:
+    with loaded_artifacts() as loaded, daemon(["--model", str(model)], device, sock) as c:
+        mark = dispatch_mark(c, loaded)
         t0 = time.perf_counter()
         got = c.describe(str(logs / "clips.npz"))["features"]
         out["describe_seconds"] = time.perf_counter() - t0
+        out["graph"] = graph_dispatches(mark, dispatch_mark(c, loaded), loaded, device, "cli_bf16 daemon")
     desc_err = float(np.abs(got - want).max())
     log("cli_bf16", launches=launches, rerank_vs_plain_max_abs_diff=errs, artifact_bytes=model.stat().st_size,
         export_dim=meta["dim"], describe_vs_modules_max_abs=desc_err, checkpoint_bytes=ckpt.stat().st_size, **out)
@@ -2593,19 +2642,106 @@ def artifact_with_example(model, device):
     return old, len(blob), len(buf.getvalue()), int(np.prod(shape))
 
 
+GRAPH_TOL = 1e-5  # the replayed graph against the eager program: the same kernels, expected bit-equal
+
+
+@contextlib.contextmanager
+def loaded_artifacts():
+    """Each ``cli_extract._load_artifact`` made inside (a daemon's among
+    them): ``[{"call": call, "seconds": load seconds}]``."""
+    loaded, load = [], cli_extract._load_artifact
+
+    def record(path, device):
+        t0 = time.perf_counter()
+        call, meta = load(path, device)
+        loaded.append({"call": call, "seconds": time.perf_counter() - t0})
+        return call, meta
+
+    cli_extract._load_artifact = record
+    try:
+        yield loaded
+    finally:
+        cli_extract._load_artifact = load
+
+
+def dispatch_mark(c, loaded):
+    """A daemon's coalescer dispatches (its stats op) and its artifact
+    call's graph replays, now."""
+    return c.stats()["describe_batching"]["dispatches"], getattr(loaded[-1]["call"], "replays", None)
+
+
+def graph_dispatches(before, after, loaded, device, what):
+    """Over a daemon's requests between two ``dispatch_mark``s: on the card
+    one graph replay per coalescer dispatch; with the call's load seconds
+    and graph pool bytes."""
+    call = loaded[-1]["call"]
+    out = {"dispatches": after[0] - before[0],
+           "replays": None if after[1] is None else after[1] - before[1],
+           "load_s": loaded[-1]["seconds"], "pool_bytes": getattr(call, "pool_bytes", None)}
+    if torch.device(device).type == "cuda":
+        check(isinstance(call, cli_extract._GraphCall), f"{what}: the daemon's call is {type(call).__name__}")
+        check(out["dispatches"] > 0 and out["replays"] == out["dispatches"],
+              f"{what}: {out['replays']} graph replays for {out['dispatches']} dispatches")
+    return out
+
+
+def program_ops(program, top=8):
+    """The loaded program's ``call_function`` nodes: their number and the
+    most frequent targets."""
+    targets = [getattr(n.target, "__name__", str(n.target)) for n in program.graph.nodes if n.op == "call_function"]
+    counts = {}
+    for t in targets:
+        counts[t] = counts.get(t, 0) + 1
+    return {"call_function": len(targets), "top": sorted(counts.items(), key=lambda kv: -kv[1])[:top]}
+
+
 def artifact_check(model, clips, device):
     """The artifact without its example input against the same program with
     it: bytes of each and the answers of both (``_load_artifact``'s call on
-    one batch of ``clips``), which must be bit-equal."""
+    one batch of ``clips``), which must be bit-equal. Then the call (on the
+    card one CUDA graph replayed) on a second, different batch (``255 -
+    clips``) right after the first: both answers held to the eager
+    ``torch.export.load(...).module()`` within ``GRAPH_TOL`` (expected
+    bit-equal), the first answer unchanged by the second call, ``replays``
+    counting both; the load seconds, the graph pool's bytes and the
+    program's op nodes beside."""
+    cuda = torch.device(device).type == "cuda"
     old, new_bytes, old_bytes, example_bytes = artifact_with_example(model, device)
-    answers = [cli_extract._load_artifact(str(path), device)[0](clips) for path in (old, model)]
+    answers, load_s = [], []
+    for path in (old, model):
+        t0 = time.perf_counter()
+        call = cli_extract._load_artifact(str(path), device)[0]
+        load_s.append(time.perf_counter() - t0)
+        answers.append(call(clips))
     out = {"program_bytes": new_bytes, "with_example_program_bytes": old_bytes, "example_bytes": example_bytes,
            "bytes_dropped": old_bytes - new_bytes, "file_bytes": Path(model).stat().st_size,
            "with_example_file_bytes": old.stat().st_size,
            "answers_bit_equal": answers[0].dtype == answers[1].dtype and answers[0].tobytes() == answers[1].tobytes()}
     old.unlink()
+    first, second = answers[1], np.uint8(255) - clips
+    kept = first.copy()
+    got = [first, call(second)]
+    with np.load(model, allow_pickle=False) as z:
+        eager = torch.export.load(io.BytesIO(z["exported"].tobytes())).module()
+    with torch.inference_mode():
+        want = [eager(torch.from_numpy(x).to(device)).to(torch.float32).cpu().numpy() for x in (clips, second)]
+    out["graph"] = {"call": type(call).__name__, "load_s": load_s, "replays": getattr(call, "replays", None),
+                    "pool_bytes": getattr(call, "pool_bytes", None),
+                    "vs_eager_max_abs": max(float(np.abs(g - w).max()) for g, w in zip(got, want)),
+                    "vs_eager_bit_equal": all(g.tobytes() == w.tobytes() for g, w in zip(got, want)),
+                    "first_unchanged": first.tobytes() == kept.tobytes(),
+                    "batches_differ": not np.array_equal(got[0], got[1]), "tol": GRAPH_TOL,
+                    "program_ops": program_ops(eager)}
+    del call, eager
+    empty_cache(device)
     check(out["answers_bit_equal"], f"artifact without the example input answers otherwise: {out}")
     check(out["bytes_dropped"] >= example_bytes, f"artifact did not drop its example input: {out}")
+    g = out["graph"]
+    check(g["vs_eager_max_abs"] <= GRAPH_TOL and g["first_unchanged"] and g["batches_differ"],
+          f"the artifact's call against the eager program: {g}")
+    if cuda:
+        check(g["call"] == "_GraphCall" and g["replays"] == 2 and g["pool_bytes"] > 0,
+              f"the artifact's call on the card is not one graph replay per batch: {g}")
     return out
 
 
@@ -2690,6 +2826,50 @@ def phase_learning_equivalence(device="cuda", extra=(), frame=FRAME, argv=LEQ_AR
     return run
 
 
+BENCH_SWEEP = (32, 64, 96, 128, 192)  # micro-batches of the bench's descriptor rate (its key stays at 96)
+
+
+def bench_py_keys():
+    """The keys of the dict that the root ``bench.py`` prints."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    dumps = [n for n in ast.walk(tree) if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and n.func.attr == "dumps" and n.args and isinstance(n.args[0], ast.Dict)]
+    return [key.value for key in dumps[0].args[0].keys]
+
+
+def phase_bench(device="cuda", sweep=BENCH_SWEEP):
+    """``python -m grl_tpu_torch.bench`` in a subprocess, as a user runs it:
+    one JSON line whose keys are bench.py's, both rates finite and above 0;
+    then, in this process, the descriptor's rate at each micro-batch of
+    ``sweep`` (``bench.descriptor_clips_per_sec`` on one set of bench's
+    models) with its peak memory."""
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "grl_tpu_torch.bench", *([] if cuda else ["--device", device])],
+                         cwd=ROOT, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    check(run.returncode == 0, f"grl_tpu_torch.bench exited {run.returncode}: {run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    log("bench", line=line, seconds=seconds)
+    check(len(lines) == 1 and list(line) == bench_py_keys(), f"bench printed {lines}")
+    for key in ("value", "gallery_queries_per_sec"):
+        check(np.isfinite(line[key]) and line[key] > 0, f"bench {key} = {line[key]}")
+    modules = bench.build_models(device)
+    rates = {}
+    for batch in sweep:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        rate = bench.descriptor_clips_per_sec(batch, device, modules)
+        rates[batch] = {"clips_per_s": rate, "ms": 1e3 * batch / rate,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+    log("bench_sweep", dtype="bfloat16", seq_len=bench.SEQ_LEN, frame=[bench.H, bench.W], rates=rates)
+    check(all(np.isfinite(r["clips_per_s"]) and r["clips_per_s"] > 0 for r in rates.values()), f"sweep {rates}")
+    del modules
+    empty_cache(device)
+    return line, rates
+
+
 def host_inventory():
     """What the machine offers the data plane and the scalar writer."""
     def version(name):
@@ -2729,6 +2909,7 @@ def main():
     torch.cuda.empty_cache()
     phase_entry()
     rates = phase_model_bf16(gen)
+    phase_bench()
     phase_mars(gen)
     phase_train_check(gen)
     state, ds = phase_train(gen)

@@ -21,7 +21,9 @@ daemon speaks grl_tpu's JSON-lines protocol, so ``grl_tpu.client`` and
 ``grl_tpu_torch.client`` both drive it. ``export-model`` writes a
 ``torch.export`` program (uint8 clips -> descriptors, weights inside) for
 the device it runs on; ``describe`` and ``serve`` load it with no model
-code. Every re-ranked answer ends in the min-plus kernel on the card.
+code, and on the card replay it as one CUDA graph of the export batch
+(``--device cpu`` runs its ops eagerly). Every re-ranked answer ends in the
+min-plus kernel on the card.
 ``main`` runs in fp32 with TF32 off; ``features --bf16`` and
 ``export-model --bf16`` compute in bfloat16 (descriptors stay fp32), and a
 bf16 artifact is described and served as an fp32 one. ``features
@@ -209,12 +211,74 @@ def export_model(args):
     return meta
 
 
+class _GraphCall:
+    """The artifact's program on a CUDA device as one CUDA graph of the
+    export batch: captured once, at load, and replayed by every call.
+
+    A dispatch is then a copy in through a pinned host buffer, one replay
+    and a copy back, where the loaded ``GraphModule`` would issue each of
+    its ops from Python (710 for the fp32 RGB descriptor). ``replays`` counts the replays. A call holds
+    its own lock around the static buffers and returns a fresh array. A
+    failed capture or replay raises; nothing runs the eager program here."""
+
+    _WARMUP = 3  # eager runs on a side stream before the capture (cuDNN, cuBLAS, the allocator)
+
+    def __init__(self, program, meta, device):
+        import threading
+
+        self.shape = (meta["batch"], meta["seq_len"], meta["height"], meta["width"], meta["channels"])
+        self.replays = 0
+        self._lock = threading.Lock()
+        self._program = program  # the graph reads its weights where they lie
+        with torch.cuda.device(device), torch.inference_mode():
+            self._in = torch.zeros(self.shape, dtype=torch.uint8, device=device)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self._WARMUP):
+                    program(self._in)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            # the capture empties the allocator's cache first; empty it
+            # here so that what it reserves is the graph's private pool
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self._out = program(self._in).to(torch.float32)
+            torch.cuda.synchronize()
+            # device bytes the capture reserved: the graph's private pool
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self._host_in = torch.empty(self.shape, dtype=torch.uint8, pin_memory=True)
+        self._host_out = torch.empty(self._out.shape, dtype=torch.float32, pin_memory=True)
+        # a blocking event: the leading thread sleeps through the replay
+        # instead of spinning on a core that the connection threads want
+        self._done = torch.cuda.Event(blocking=True)
+        self._device = torch.device(device)
+
+    def __call__(self, chunk):
+        chunk = np.asarray(chunk)
+        if chunk.shape != self.shape or chunk.dtype != np.uint8:
+            raise ValueError(f"chunk {chunk.dtype} {chunk.shape}; the graph takes uint8 {self.shape}")
+        with self._lock, torch.cuda.device(self._device), torch.inference_mode():
+            self._host_in.numpy()[...] = chunk
+            self._in.copy_(self._host_in, non_blocking=True)
+            self.graph.replay()
+            self._host_out.copy_(self._out, non_blocking=True)
+            self._done.record()
+            self._done.synchronize()
+            self.replays += 1
+            return self._host_out.numpy().copy()
+
+
 def _load_artifact(path, device):
     """Load an ``export-model`` artifact -> ``(call, meta)``. ``call`` takes a
     uint8 numpy chunk of the export batch and returns float32 numpy
-    descriptors, computed on ``device`` under ``torch.inference_mode``.
-    Refuses, at load, an artifact exported for another device and one that
-    ``jax.export`` wrote (grl_tpu's)."""
+    descriptors, computed on ``device`` under ``torch.inference_mode``: on a
+    CUDA device it replays one CUDA graph of the program (``_GraphCall``),
+    on the CPU it runs the program's ops eagerly. Refuses, at load, an
+    artifact exported for another device and one that ``jax.export`` wrote
+    (grl_tpu's)."""
     device = torch.device(device)
     with np.load(path, allow_pickle=False) as z:
         blob = z["exported"].tobytes()
@@ -232,6 +296,8 @@ def _load_artifact(path, device):
             f"re-export with --device {device.type}"
         )
     program = torch.export.load(io.BytesIO(blob)).module()
+    if device.type == "cuda":
+        return _GraphCall(program, meta, device), meta
 
     def call(chunk):
         with torch.inference_mode():

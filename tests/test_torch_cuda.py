@@ -371,6 +371,42 @@ def test_artifact_exported_on_card_serves_in_process(gen, tmp_path):
     np.testing.assert_allclose(np.load(tmp_path / "f.npz")["features"], want, rtol=0, atol=1e-4)
 
 
+def test_artifact_call_replays_one_graph_per_batch(gen, tmp_path):
+    """``_load_artifact`` on the card replays one CUDA graph per call: on two
+    different batches in a row its answers equal the eager program's, the
+    first answer is not overwritten by the second call, and ``replays``
+    counts the calls; a chunk of another shape is refused."""
+    import io
+
+    from grl_tpu_torch.cli import extract
+    from grl_tpu_torch.utils import save_train_state
+
+    save_train_state(_tiny_train_state("cuda"), {"epoch": 0}, str(tmp_path / "ckpt.npz"))
+    extract.main(extract.build_parser().parse_args([
+        "--device", "cuda", "export-model", "--checkpoint", str(tmp_path / "ckpt.npz"), "--tiny",
+        "--num-classes", "5", "--batch", "4", "--seq_len", "2", "--height", "64", "--width", "32",
+        "-o", str(tmp_path / "model.npz")]))
+    call, meta = extract._load_artifact(str(tmp_path / "model.npz"), "cuda")
+    assert isinstance(call, extract._GraphCall) and call.replays == 0 and call.pool_bytes > 0
+    with np.load(tmp_path / "model.npz") as z:
+        eager = torch.export.load(io.BytesIO(z["exported"].tobytes())).module()
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, 256, (4, 2, 64, 32, 3), np.uint8) for _ in range(2)]
+    first = call(batches[0])
+    kept = first.copy()
+    second = call(batches[1])
+    assert call.replays == 2 and first.dtype == np.float32 and first.shape == (4, meta["dim"])
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(first, second)
+    with torch.inference_mode():
+        for got, clips in zip((first, second), batches):
+            want = eager(torch.from_numpy(clips).cuda()).float().cpu().numpy()
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="graph takes"):
+        call(batches[0][:2])
+    assert call.replays == 2
+
+
 def _bf16_models(bf16=True):
     """The CLIs' ``--tiny`` modules (``--bf16`` or fp32) with seed-0 weights, on the CPU."""
     import argparse

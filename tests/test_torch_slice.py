@@ -143,7 +143,8 @@ def test_port_imports_neither_jax_nor_grl_tpu():
         "         'grl_tpu_torch.tools.bench_scaling', 'grl_tpu_torch.tools.bench_eval_tail',\n"
         "         'grl_tpu_torch.tools.make_fake_mars', 'grl_tpu_torch.tools.make_fake_duke',\n"
         "         'grl_tpu_torch.tools.prepare_real_data', 'grl_tpu_torch.tools.profile_train_step',\n"
-        "         'grl_tpu_torch.entry', 'grl_tpu_torch.tools.learning_equivalence']\n"
+        "         'grl_tpu_torch.entry', 'grl_tpu_torch.tools.learning_equivalence',\n"
+        "         'grl_tpu_torch.bench']\n"
         "for name in entry:\n"
         "    importlib.import_module(name)\n"
         "assert all(name in sys.modules for name in entry)\n"
