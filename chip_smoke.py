@@ -194,6 +194,25 @@ descriptor), with seeded random weights. Phases:
     128 and 192. ``profile_op_links`` (in ``profile``): the ops around the
     launches of the descriptor's clamp and BatchNorm kernels.
 
+32. ``probes`` (after the slice): ``Evaluator.describe_clips`` at full
+    width on the slice's fp32 modules through the rrs_test row path (a
+    catalog's gallery in loader batches of 43 clips: chunks of 32 and 11,
+    padded to 32 and 16), each chunk's valid rows held to the descriptor of
+    the same clips unpadded within ``DESCRIBE_TOL``; then the four probe and
+    sweep tools' functions at reduced repeats (their CLIs keep grl_tpu's):
+    ``probe_bandwidth`` (host<->device rates, pageable and pinned, at 16 MiB,
+    a training batch and a serve chunk; per-dispatch latency; ``.item()``),
+    ``probe_int8`` (int8 and bf16 products at 8192^3, the 3x3 conv at
+    layer3's shape, the im2col fallback; the int8 product and the im2col
+    exact; the int8 conv's rejection is a result), ``sweep_compiler_options``
+    (the bf16 descriptor at 96 under ``PROBE_SWEEP``: the default,
+    ``cudnn.benchmark`` in a child process from an empty cuDNN plan cache,
+    channels_last and a CUDA graph, each within 1e-2 of the default) and
+    ``sweep_train_compiler_options`` (the bf16 step at batch 16 under
+    ``PROBE_TRAIN_SWEEP``: the default and channels_last, then fp32 and
+    fp32 under deterministic kernels in a child). No kernel of the port is on this path: the launch counts are
+    read around it and logged.
+
 In ``serve``, ``flow_serve`` and ``cli_bf16`` the artifact, which no
 longer keeps its zero example input, is held against the same program
 saved with it: bytes of each, answers bit-equal. Its call on the card
@@ -268,6 +287,7 @@ from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
 from grl_tpu_torch.tools import learning_equivalence as leq
 from grl_tpu_torch.tools import make_fake_duke, make_fake_mars, prepare_real_data, profile_train_step
+from grl_tpu_torch.tools import probe_bandwidth, probe_int8, sweep_compiler_options, sweep_train_compiler_options
 from grl_tpu_torch.utils import AsyncCheckpointer, load_train_state, serialization
 # the card's peaks (H100 SXM data sheet): dense bf16 on the tensor cores,
 # fp32 outside them, and device memory bandwidth
@@ -2870,6 +2890,96 @@ def phase_bench(device="cuda", sweep=BENCH_SWEEP):
     return line, rates
 
 
+DESCRIBE_TOL = 1e-5  # fp32 descriptor rows of a padded chunk against the same clips unpadded
+PROBE_REPEATS = {"bandwidth_reps": 3, "int8_iters": 3, "iters": 3, "steps": 3, "windows": 1, "warm": 1}
+# the sweeps' variants here: each of their paths once (in this process, a
+# child that autotunes, the graph, the deterministic child); the CLIs run
+# them all. The step's autotuning child (~35 s, the search ~21 s of it) is
+# left to the CLI: its path is the descriptor's and the deterministic row's
+PROBE_SWEEP = ("default", "cudnn_benchmark", "channels_last", "cuda_graph")
+PROBE_TRAIN_SWEEP = ("default", "channels_last", "fp32", "fp32_deterministic")
+
+
+def phase_probes(cnn, sia, device="cuda"):
+    """``describe_clips`` through the rrs_test row path at full width, then
+    the probe and sweep tools' functions at ``PROBE_REPEATS`` (their sizes
+    as the CLIs run them)."""
+    rrs_batch, micro_batch, reps = 43, 32, PROBE_REPEATS  # loader batches of 43: chunks of 32 and 11
+    t_phase = time.perf_counter()
+    zero_launches()
+    ds = SyntheticVideoReID(num_train_ids=0, num_test_ids=24, tracklets_per_id=2, num_cams=2,
+                            frames_range=(8, 40), height=FRAME[0], width=FRAME[1], seed=1)
+    evaluator = Evaluator(cnn, sia, micro_batch=micro_batch, device=device)
+    calls = []
+    describe_clips = evaluator.describe_clips
+
+    def spy(clips):
+        out = describe_clips(clips)
+        calls.append((np.array(clips), out))
+        return out
+
+    evaluator.describe_clips = spy
+    loader = ClipLoader(ClipDataset(ds.gallery, 8, "rrs_test", *FRAME), batch_size=rrs_batch, workers=4)
+    t0 = time.perf_counter()
+    feats, pids, _ = evaluator.extract_features(loader)
+    sync(device)
+    rrs_s = time.perf_counter() - t0
+    buckets = [(int(d.shape[0]), size) for _, out in calls for d, size in out]
+    errs = []
+    with torch.inference_mode():
+        for clips, out in calls:
+            for i, (d, size) in enumerate(out):
+                plain = evaluator._describe(evaluator._to_device(clips[i * micro_batch: i * micro_batch + size]))
+                errs.append(float((d[:size] - plain).abs().max()))
+    rows_ok = torch.equal(feats, torch.cat([d[:size] for _, out in calls for d, size in out]))
+    log("describe_clips", items=len(ds.gallery), loader_batch=rrs_batch, micro_batch=micro_batch, buckets=buckets,
+        rrs_seconds=rrs_s, max_abs_diff_vs_unpadded=max(errs), tol=DESCRIBE_TOL)
+    check(len(pids) == feats.shape[0] == len(ds.gallery) and rows_ok, "rrs rows are not describe_clips' valid rows")
+    check({b for b, _ in buckets} <= {micro_batch, micro_batch // 2, micro_batch // 3}, f"buckets {buckets}")
+    check(max(errs) <= DESCRIBE_TOL, f"describe_clips vs the unpadded descriptor: {max(errs)}")
+    del evaluator, feats, calls
+    empty_cache(device)
+
+    t0 = time.perf_counter()
+    bw = probe_bandwidth.probe(device, reps["bandwidth_reps"])
+    log("probe_bandwidth", card=nvidia_smi() if torch.device(device).type == "cuda" else None, **bw,
+        seconds=time.perf_counter() - t0)
+    check(all(np.isfinite(c["GB_per_s"]) and c["GB_per_s"] > 0 for c in bw["copies"].values())
+          and bw["per_dispatch_ms"] > 0 and bw["item_ms"] > 0, f"probe_bandwidth {bw}")
+
+    t0 = time.perf_counter()
+    i8 = probe_int8.probe(device, iters=reps["int8_iters"])
+    log("probe_int8", **i8, seconds=time.perf_counter() - t0)
+    int8 = ("matmul_int8", "matmul_int8_b_colmajor", "im2col_int8", "im2col_int8_w_colmajor")
+    for key in int8:
+        check(i8[key].get("exact") is True, f"probe_int8 {key}: {i8[key]}")
+    for key in (*int8, "matmul_bf16", "conv_bf16"):
+        check(np.isfinite(i8[key]["tops"]) and i8[key]["tops"] > 0, f"probe_int8 {key}: {i8[key]}")
+    empty_cache(device)
+
+    t0 = time.perf_counter()
+    sweep = sweep_compiler_options.sweep(device, iters=reps["iters"], windows=reps["windows"], warm=reps["warm"],
+                                         variants=PROBE_SWEEP, report=lambda line: None)
+    log("sweep_compiler_options", dtype="bfloat16", variants=sweep, seconds=time.perf_counter() - t0)
+    empty_cache(device)
+
+    t0 = time.perf_counter()
+    train_sweep = sweep_train_compiler_options.sweep(device, steps=reps["steps"], windows=reps["windows"],
+                                                     warm=reps["warm"], variants=PROBE_TRAIN_SWEEP,
+                                                     report=lambda line: None)
+    log("sweep_train_compiler_options", variants=train_sweep, seconds=time.perf_counter() - t0)
+    for name, row in train_sweep.items():
+        check(all(np.isfinite(t) and t > 0 for t in row["ms_per_step"]) and np.isfinite(row["loss"]),
+              f"sweep_train_compiler_options {name}: {row}")
+    empty_cache(device)
+    launches = read_launches()
+    log("probes", seconds=time.perf_counter() - t_phase, launches=launches, policy_after=precision_flags(),
+        cudnn_benchmark_after=torch.backends.cudnn.benchmark)
+    check_fp32_policy("the probes phase", precision_flags())
+    check(not torch.backends.cudnn.benchmark, "a sweep left cudnn.benchmark on")
+    return launches
+
+
 def host_inventory():
     """What the machine offers the data plane and the scalar writer."""
     def version(name):
@@ -2905,6 +3015,7 @@ def main():
     entry = phase_kernels(gen)
     cnn, sia = phase_model(gen)
     launches = phase_slice(cnn, sia)
+    phase_probes(cnn, sia)
     del cnn, sia
     torch.cuda.empty_cache()
     phase_entry()

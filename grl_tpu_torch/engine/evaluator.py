@@ -6,7 +6,9 @@
 - dense path: every consecutive clip of a tracklet is described and the
   descriptors averaged; clips of many tracklets are packed into each
   micro-batch and added into per-tracklet sums on the device;
-- rrs_test path: one clip per tracklet, rows written in order;
+- rrs_test path: one clip per tracklet, rows written in order, through
+  ``describe_clips`` (each chunk padded to one of a few fixed shapes, as
+  grl_tpu pads it);
 - gallery := query ∪ gallery, cosine distance ``-qf @ gfᵀ``, optional
   k-reciprocal re-ranking on the device (with the min-plus kernel; the
   staged builder above n = 16384 items, as grl_tpu), and the
@@ -176,6 +178,41 @@ class Evaluator:
     def _to_device(self, clips_np):
         return torch.from_numpy(np.ascontiguousarray(clips_np)).to(self.device)
 
+    def _bucket(self, size):
+        """The descriptor shape a chunk of ``size`` clips is padded to, by
+        grl_tpu's rule: the smallest of ``micro_batch // 3``,
+        ``micro_batch // 2`` and ``micro_batch`` that holds it, so a 30-clip
+        rrs_test batch at 96 pads to 32, not 96. grl_tpu rounds each bucket
+        up to a multiple of its mesh's devices; one process drives one card
+        here (under a group each rank describes its own stripe), so that
+        multiple is 1."""
+        mb = self.micro_batch
+        for denom in (3, 2):
+            if 0 < size <= mb // denom:
+                return mb // denom
+        return mb
+
+    @torch.inference_mode()
+    def describe_clips(self, clips_u8):
+        """(n, S, h, w, C) uint8 clips -> a list of ``(descriptor rows
+        (bucket, 3C) on the evaluator's device, valid row count)``, one per
+        chunk of ``micro_batch`` clips (grl_tpu's ``describe_clips``). A
+        chunk is padded with zero clips up to its ``_bucket``, on the
+        device (the host copies only the valid clips); the padded rows
+        follow the valid ones and are never read."""
+        self.cnn.eval()
+        self.siamese.eval()
+        clips_u8 = np.asarray(clips_u8)
+        outs = []
+        for i in range(0, clips_u8.shape[0], self.micro_batch):
+            chunk = self._to_device(clips_u8[i : i + self.micro_batch])
+            size = chunk.shape[0]
+            pad = self._bucket(size) - size
+            if pad:
+                chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
+            outs.append((self._describe(chunk), size))
+        return outs
+
     @torch.inference_mode()
     def extract_features(self, loader):
         """Loader -> (features (N, 3C) device tensor, pids, camids); dense
@@ -194,8 +231,7 @@ class Evaluator:
     def _extract_rows(self, loader, pids, camids):
         rows = []
         for clips, pid, camid in loader:
-            for i in range(0, clips.shape[0], self.micro_batch):
-                rows.append(self._describe(self._to_device(clips[i : i + self.micro_batch])))
+            rows += [d[:size] for d, size in self.describe_clips(clips)]
             pids.extend(np.atleast_1d(pid).tolist())
             camids.extend(np.atleast_1d(camid).tolist())
         return torch.cat(rows)

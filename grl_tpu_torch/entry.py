@@ -22,7 +22,7 @@ import argparse
 import numpy as np
 import torch
 
-from . import models, ops, parallel, resolve_device
+from . import models, ops, parallel, resolve_device, set_precision
 from .engine import init_train_state, make_train_step
 from .engine.metrics import evaluate_device
 from .engine.rerank import re_ranking
@@ -131,6 +131,7 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda; cpu runs on the host)")
     args = ap.parse_args(argv)
+    set_precision()  # the CLIs' policy
     module, example = entry(args.device)
     with torch.inference_mode():
         out = module(*example)

@@ -14,7 +14,10 @@ connections. It prints one JSON line: the wall times and the daemon's own
 rank's descriptor rides the same coalescer. Without ``--model`` it builds
 a tiny random-init artifact (``make_random_checkpoint --tiny``, then
 ``export-model``). It runs on the card by default; ``--device cpu`` runs
-on the host.
+on the host. Its ``main`` fixes the CLIs' precision policy first
+(``set_precision``), so the daemon in its thread runs as the ``serve`` CLI
+does; the line carries the policy's flags as the daemon's thread read them
+(``daemon_precision_flags``).
 
 Then it runs both phases again with the coalescer timed from the outside
 (its methods wrapped in this process; the daemon's code is unchanged) and
@@ -59,6 +62,9 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device of the daemon (default cuda; cpu runs on the host)")
     args = ap.parse_args(argv)
+    from .. import set_precision
+
+    set_precision()
     with tempfile.TemporaryDirectory(prefix="serve_conc_") as tmp, Timeline() as tl:
         report = _run(args, tmp, tl)
     print(json.dumps(report))
@@ -172,6 +178,7 @@ class Timeline:
 def _run(args, tmp, tl):
     import numpy as np
 
+    from .. import precision_flags
     from ..cli.extract import build_parser, serve
     from ..cli.extract import main as extract_main
     from ..client import ServeClient
@@ -191,7 +198,13 @@ def _run(args, tmp, tl):
     argv = ["--device", args.device, "serve", "--model", model, "--listen", f"unix:{sock}", "--warmup"]
     if args.rank_every:
         argv += ["--capacity", "64", "--topk", "4"]
-    daemon = threading.Thread(target=serve, args=(build_parser().parse_args(argv),), daemon=True)
+    daemon_flags = {}
+
+    def run_daemon(ns):
+        daemon_flags.update(precision_flags())  # what the daemon's kernels run under
+        serve(ns)
+
+    daemon = threading.Thread(target=run_daemon, args=(build_parser().parse_args(argv),), daemon=True)
     daemon.start()
     deadline = time.time() + 1200
     while not osp.exists(sock):
@@ -275,7 +288,8 @@ def _run(args, tmp, tl):
         ph["clips_per_dispatch"] = ph["clips"] / max(ph["dispatches"], 1)
     return {
         "device": args.device, "batch": meta["batch"], "total_clips": total, "clients": args.clients,
-        "rank_every": args.rank_every, "sequential": seq, "concurrent": conc,
+        "rank_every": args.rank_every, "daemon_precision_flags": daemon_flags, "sequential": seq,
+        "concurrent": conc,
         "dispatch_reduction": seq["dispatches"] / max(conc["dispatches"], 1),
         "speedup": seq["wall_s"] / max(conc["wall_s"], 1e-9),
     }

@@ -22,6 +22,7 @@ from pathlib import Path
 
 import torch
 
+from .. import set_precision
 from ..ops.build import BUILD_INFO, load_library
 from ..ops.minplus import minplus, padded_empty
 
@@ -70,6 +71,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("minplus_ab: no CUDA device")
+    set_precision()  # the CLIs' policy (the min-plus contraction reads no TF32 flag)
 
     m, n, k = args.shape
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -52,14 +52,13 @@ import json
 import os
 import os.path as osp
 import re
-import subprocess
 import sys
 import tempfile
 from collections import defaultdict
 
 import numpy as np
 
-from ..utils.profiling import PEAK_BF16_OPS, PEAK_BYTES, PEAK_FP32_OPS
+from ..utils.profiling import PEAK_BF16_OPS, PEAK_BYTES, PEAK_FP32_OPS, card_line, sync
 
 TOOLS = ("kernel_stats", "op_stats", "list")
 # kernel category by name, first match wins; CUDA kernel names first, then
@@ -114,19 +113,6 @@ def describe_program(device, tiny=False, compute_dtype="bf16"):
     return cnn, sia, make_descriptor_fn(cnn, sia)
 
 
-def smi_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def sync(device):
-    import torch
-
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def traced(logdir, meta, run):
     """Run ``run()`` under ``torch.profiler`` (CPU, and CUDA on a card;
     shapes and flops recorded) and write ``logdir/trace.json`` with each
@@ -139,7 +125,7 @@ def traced(logdir, meta, run):
     if torch.device(meta["device"]).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
         meta["device_name"] = torch.cuda.get_device_name(torch.device(meta["device"]))
-        meta["nvidia_smi"] = smi_line()
+        meta["nvidia_smi"] = card_line(meta["device"])
     meta["torch"] = torch.__version__
     os.makedirs(logdir, exist_ok=True)
     path = osp.join(logdir, "trace.json")
@@ -530,6 +516,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.tool == "list":
         return report("", "list")
+    from .. import set_precision
+
+    set_precision()  # the CLIs' policy: what a traced step or descriptor runs under
     logdir = args.logdir or tempfile.mkdtemp(prefix=f"torchprof_b{args.batch}_")
     if not args.report_only:
         fn = capture_describe if args.program == "describe" else capture

@@ -11,7 +11,8 @@
 
 It also holds the card's peaks, which ``chip_smoke.py`` and
 ``tools/profile_train_step.py`` compute their bounds and roofline shares
-against. grl_tpu's ``enable_compilation_cache`` and
+against, and the tools' helpers: ``card_line`` (the card's name and power
+limit), ``sync`` and ``window_ms`` (one timed window of calls). grl_tpu's ``enable_compilation_cache`` and
 ``descriptor_compiler_options`` tune XLA and have no counterpart here.
 """
 
@@ -19,15 +20,55 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 
 import torch
 
-# NVIDIA H100 80GB HBM3 (SXM5, 700 W) data sheet: dense bf16 on the tensor
-# cores, fp32 outside them, and device memory bandwidth
+# NVIDIA H100 80GB HBM3 (SXM5, 700 W) data sheet: dense bf16 and dense int8
+# on the tensor cores (the sheet's 1,979 TFLOPS and 3,958 TOPS are with
+# sparsity, twice the dense rates), fp32 outside them, and device memory
+# bandwidth
 PEAK_BF16_OPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def card_line(device):
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them; a CPU device
+    names itself instead."""
+    if torch.device(device).type != "cuda":
+        return f"{device}: no card"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(device):
+    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def window_ms(fn, iters, device):
+    """Milliseconds of one window of ``iters`` calls of ``fn()``: between
+    two CUDA events on a card (the work queued before it finished first),
+    on the host clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        sync(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 @contextlib.contextmanager

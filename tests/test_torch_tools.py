@@ -93,6 +93,28 @@ def test_measure_serve_concurrency_prints_its_line(clients, rank_every):
         assert 0 <= t["handoff_s"]["max"] and t["dispatch_s"]["max"] <= t["lead_s"]["max"]
 
 
+def test_measure_serve_concurrency_daemon_runs_under_the_policy(tmp_path):
+    """``--model`` of an artifact exported in another process: no CLI
+    ``main`` runs in the tool's process, yet its daemon thread reads every
+    flag of the CLIs' precision policy off (PyTorch's default leaves
+    cuDNN's TF32 on), as the tool's ``main`` fixed them."""
+    from grl_tpu_torch import precision_flags
+
+    ckpt = str(tmp_path / "ckpt.npz")
+    tool("make_random_checkpoint", "-o", ckpt, "--tiny", "--num-classes", "4")
+    model = str(tmp_path / "model.npz")
+    export = subprocess.run([sys.executable, "-m", "grl_tpu_torch.cli.extract", "--device", "cpu", "export-model",
+                             "--checkpoint", ckpt, "--tiny", "--num-classes", "4", "--batch", "4", "--seq_len", "2",
+                             "--height", "64", "--width", "32", "-o", model], cwd=REPO, capture_output=True,
+                            text=True, timeout=TIMEOUT, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert export.returncode == 0, export.stderr[-3000:]
+    report = last_json(tool("measure_serve_concurrency", "--device", "cpu", "--model", model, "--clients", "2",
+                            "--reps", "2"))
+    assert report["batch"] == 4 and report["concurrent"]["clips"] == 4
+    assert sorted(report["daemon_precision_flags"]) == sorted(precision_flags())
+    assert not any(report["daemon_precision_flags"].values()), report["daemon_precision_flags"]
+
+
 def test_rehearse_mars_scale_prints_its_line(tmp_path):
     """8 train and 8 test ids of MARS's layout over 2 cameras, 48x24 JPEGs:
     one epoch of ``cli.train -d mars --tiny`` and ``cli.evaluate``, with the
