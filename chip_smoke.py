@@ -104,7 +104,7 @@ descriptor), with seeded random weights. Phases:
     --rerank 1`` at full width (a 6-channel trunk; the warm step of its
     state at 256x128x6, the flow loader's clips and JPEGs per second),
     ``cli.evaluate --use-flow --rerank 1 --visual 1 --save-distmat``
-    inside ``utils.profiling.trace`` (the kernel launched and named in the
+    under ``torch.profiler`` (the kernel launched and named in its
     Chrome trace, the re-ranking equal to the plain min-sum's, one strip
     directory per query), then ``--visual-from`` on the npz (the same
     rank-1, mAP and strips, no launch); ``flow_serve``: ``features
@@ -1765,11 +1765,12 @@ def tree_pixels(root):
 def phase_flow_cli(device="cuda", extra=(), frame=(128, 64)):
     """The ``--use-flow`` CLIs over an iLIDS-VID layout with flow companions:
     ``cli.train`` for one epoch with the re-ranked evaluation, ``cli.evaluate
-    --rerank 1 --visual 1 --save-distmat`` inside ``utils.profiling.trace``,
+    --rerank 1 --visual 1 --save-distmat`` under ``torch.profiler``,
     and ``--visual-from`` on the saved npz; launch counts zeroed before
     each CLI and read after. Returns the launches and the checkpoint."""
+    from torch.profiler import ProfilerActivity, profile
+
     from grl_tpu_torch.engine import eval_items
-    from grl_tpu_torch.utils.profiling import trace
 
     cuda = torch.device(device).type == "cuda"
     for d in (FLOW_DIR, FLOW_RUN):
@@ -1807,19 +1808,21 @@ def phase_flow_cli(device="cuda", extra=(), frame=(128, 64)):
 
     ckpt = FLOW_RUN / "checkpoint.npz"
     dist = FLOW_RUN / "distmat.npz"
-    trace_dir = FLOW_RUN / "trace"
+    trace_file = FLOW_RUN / "trace" / "trace.json"
+    trace_file.parent.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     zero_launches()
     sync(device)
-    with recording() as rec, trace(str(trace_dir)):
+    with recording() as rec, profile(activities=activities) as prof:
         t0 = time.perf_counter()
         top1 = run_cli(cli_evaluate, [*common, "--rerank", "1", "--visual", "1", "--checkpoint", str(ckpt),
                                       "--save-distmat", str(dist)], device)
         sync(device)
         out["evaluate_seconds"] = time.perf_counter() - t0
+    prof.export_chrome_trace(str(trace_file))
     launches["evaluate"] = read_launches()["minplus"]
     res = rec["evals"][-1]
     eval_err = rerank_vs_plain(res)
-    trace_file = trace_dir / "trace.json"
     kernels_traced = {e.get("name", "")[:60] for e in json.load(open(trace_file))["traceEvents"]
                       if "minplus_kernel" in e.get("name", "")}
     visual = FLOW_RUN / "visual"

@@ -46,6 +46,7 @@ it is retrieval, not CMC.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import io
 import json
@@ -64,6 +65,7 @@ from ..engine import Evaluator, init_train_state
 from ..engine.evaluator import _euclidean, cosine_distance, make_descriptor_fn, rerank_columns
 from ..engine.rerank import re_ranking, re_ranking_padded, top_k, warn_if_degenerate
 from ..utils import load_train_state
+from ..utils.profiling import span
 from .train import _synthetic_kwargs, build_models, eval_meta, ranks_to_launch, say_one_device
 
 # serve's rerank takes the one-program capacity-padded builder up to this
@@ -700,6 +702,17 @@ def serve(args, inp=None, out=None):
     line is drained in 1 MiB chunks and answered with an error); every
     response carries ``ms``. SIGTERM/SIGINT finish the in-flight request,
     close the socket, unlink a unix socket file and return.
+
+    While a ``torch.profiler`` session is active in the daemon's process
+    (an operator profiling it), a ``rank`` response also carries
+    ``"spans"``: the request's spans (``utils.profiling.Span``'s fields as
+    a list, times on the daemon's ``time.time_ns()`` clock) that ended
+    before the response was built: ``serve.decode``, ``serve.lock_wait``,
+    ``serve.lock_held`` with ``serve.read`` and ``serve.respond`` under it,
+    and re-ranking's ``rerank.*`` stages with each one's device
+    milliseconds. ``ServeClient`` takes them off the response and records
+    them in its own process (``utils.profiling.record``). Without a
+    profiler no response carries them.
     """
     import signal
     import socket as socklib
@@ -812,15 +825,18 @@ def serve(args, inp=None, out=None):
         if rr_staged:
             # gg is not cached on this route: the staged builder frees the
             # distance matrices after its first stage
-            box = [cosine_distance(qf, idx["gf"]), _euclidean(qf, qf),
-                   _euclidean(idx["gf"], idx["gf"])]
+            with span("rerank.distances", device=device):
+                box = [cosine_distance(qf, idx["gf"]), _euclidean(qf, qf),
+                       _euclidean(idx["gf"], idx["gf"])]
             return re_ranking(inputs_box=box, valid=(n_q, n))
-        # the gallery-gallery matrix changes only on enrollment: cached per
-        # valid count
-        if idx.get("gg_n") != n:
-            idx["gg"] = _euclidean(idx["gf"], idx["gf"])
-            idx["gg_n"] = n
-        return re_ranking_padded(cosine_distance(qf, idx["gf"]), _euclidean(qf, qf), idx["gg"], n_q, n)
+        with span("rerank.distances", device=device):
+            # the gallery-gallery matrix changes only on enrollment: cached
+            # per valid count
+            if idx.get("gg_n") != n:
+                idx["gg"] = _euclidean(idx["gf"], idx["gf"])
+                idx["gg_n"] = n
+            qg, qq = cosine_distance(qf, idx["gf"]), _euclidean(qf, qf)
+        return re_ranking_padded(qg, qq, idx["gg"], n_q, n)
 
     def rank_reranked(feats, topk):
         """k-reciprocal re-ranked retrieval (the `rank --rerank` math)
@@ -843,15 +859,17 @@ def serve(args, inp=None, out=None):
         qf = torch.zeros((q_pad, feats.shape[1]), dtype=torch.float32, device=device)
         qf[:n_q] = torch.from_numpy(feats).to(device)
         scores, order = rerank_topk(rerank_dist(qf, n_q), n)
-        scores = scores[:n_q].cpu().numpy()
-        order = order[:n_q].cpu().numpy()
-        resp = {
-            "ok": True, "op": "rank", "reranked": True,
-            "results": [
-                {"query": r, "matches": matches_of(order[r], scores[r], topk)}
-                for r in range(n_q)
-            ],
-        }
+        with span("serve.read"):
+            scores = scores[:n_q].cpu().numpy()
+            order = order[:n_q].cpu().numpy()
+        with span("serve.respond"):
+            resp = {
+                "ok": True, "op": "rank", "reranked": True,
+                "results": [
+                    {"query": r, "matches": matches_of(order[r], scores[r], topk)}
+                    for r in range(n_q)
+                ],
+            }
         if n_q + n < 42:  # 2 * (k1 + 1), warn_if_degenerate's regime; the
             # one-shot CLI warns on stderr, a daemon client sees only this
             resp["warning"] = (
@@ -859,6 +877,18 @@ def serve(args, inp=None, out=None):
                 "(2*(k1+1)) — results may be worse than plain rank"
             )
         return resp
+
+    @contextlib.contextmanager
+    def index_lock():
+        """The index lock (``lifecycle["handle"]``), its wait and its hold
+        spanned as ``serve.lock_wait`` and ``serve.lock_held``."""
+        with span("serve.lock_wait"):
+            lifecycle["handle"].acquire()
+        try:
+            with span("serve.lock_held"):
+                yield
+        finally:
+            lifecycle["handle"].release()
 
     def handle(req):
         op = req.get("op")
@@ -947,29 +977,33 @@ def serve(args, inp=None, out=None):
                 raise ValueError("index is empty — enroll with add first")
             if "features" in req:
                 # precomputed descriptors: the CNN pass is skipped
-                src = _load_npz_any(req["features"])
-                qf = np.asarray(src["features"], np.float32)
-                if qf.ndim != 2 or qf.shape[1] != meta["dim"]:
-                    raise ValueError(f"rank features shaped {qf.shape}, need (n, {meta['dim']})")
-                if qf.shape[0] == 0:
-                    raise ValueError("rank features array is empty")
+                with span("serve.decode"):
+                    src = _load_npz_any(req["features"])
+                    qf = np.asarray(src["features"], np.float32)
+                    if qf.ndim != 2 or qf.shape[1] != meta["dim"]:
+                        raise ValueError(f"rank features shaped {qf.shape}, need (n, {meta['dim']})")
+                    if qf.shape[0] == 0:
+                        raise ValueError("rank features array is empty")
             else:
-                src = _load_npz_any(req["clips"])
-                clips = src["clips"]
-                _check_clips(clips, meta)
+                with span("serve.decode"):
+                    src = _load_npz_any(req["clips"])
+                    clips = src["clips"]
+                    _check_clips(clips, meta)
                 # raw clips describe outside the index lock, through the
                 # coalescer
                 qf = coalescer.describe(clips)
-            with lifecycle["handle"], torch.inference_mode():
+            with index_lock(), torch.inference_mode():
                 if idx["n"] == 0:
                     raise ValueError("index is empty — enroll with add first")
                 topk = min(topk, k_max, idx["n"])
                 if req.get("rerank"):
                     return rank_reranked(qf, topk)
                 scores, order = rank_topk_feats(torch.from_numpy(qf).to(device), idx["n"])
-                scores, order = scores.cpu().numpy(), order.cpu().numpy()
-                results = [{"query": r, "matches": matches_of(order[r], scores[r], topk)}
-                           for r in range(qf.shape[0])]
+                with span("serve.read"):
+                    scores, order = scores.cpu().numpy(), order.cpu().numpy()
+                with span("serve.respond"):
+                    results = [{"query": r, "matches": matches_of(order[r], scores[r], topk)}
+                               for r in range(qf.shape[0])]
                 return {"ok": True, "op": "rank", "results": results}
         raise ValueError(f"unknown op {op!r}")
 
@@ -1105,34 +1139,41 @@ def serve(args, inp=None, out=None):
                 continue
             t0 = time.perf_counter()
             req = None
-            try:
-                req = json.loads(line)
-                resp = handle(req)
-            except Exception as e:  # noqa: BLE001 — per-request isolation
-                resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
-                if isinstance(req, dict):  # attribute the error to its op
-                    resp["op"] = req.get("op")
-            resp["ms"] = round((time.perf_counter() - t0) * 1e3, 2)
-            with lifecycle["lock"]:
-                s = stats.setdefault(resp.get("op") or "invalid",
-                                     {"n": 0, "errors": 0, "ms_total": 0.0, "ms_max": 0.0})
-                s["n"] += 1
-                s["errors"] += 0 if resp.get("ok") else 1
-                s["ms_total"] += resp["ms"]
-                s["ms_max"] = max(s["ms_max"], resp["ms"])
-            # decide BEFORE the reply write: a client that disconnects
-            # without reading its shutdown response must still stop the daemon
-            stopping = (
-                (resp.get("op") == "shutdown" and resp.get("ok"))
-                or lifecycle["stop"]
-            )
-            try:
-                fout.write(json.dumps(resp) + "\n")
-                fout.flush()
-                served += 1
-            except OSError:
-                if not stopping:
-                    raise  # client vanished mid-reply; conversation logs it
+            with contextlib.ExitStack() as scope:
+                request = None
+                try:
+                    req = json.loads(line)
+                    if isinstance(req, dict) and req.get("op") == "rank":
+                        request = scope.enter_context(span("serve.request"))
+                    resp = handle(req)
+                except Exception as e:  # noqa: BLE001 — per-request isolation
+                    resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                    if isinstance(req, dict):  # attribute the error to its op
+                        resp["op"] = req.get("op")
+                resp["ms"] = round((time.perf_counter() - t0) * 1e3, 2)
+                done = request.descendants() if request is not None else None
+                if done:  # a traced request's spans so far (not its own)
+                    resp["spans"] = [list(sp) for sp in done]
+                with lifecycle["lock"]:
+                    s = stats.setdefault(resp.get("op") or "invalid",
+                                         {"n": 0, "errors": 0, "ms_total": 0.0, "ms_max": 0.0})
+                    s["n"] += 1
+                    s["errors"] += 0 if resp.get("ok") else 1
+                    s["ms_total"] += resp["ms"]
+                    s["ms_max"] = max(s["ms_max"], resp["ms"])
+                # decide BEFORE the reply write: a client that disconnects
+                # without reading its shutdown response must still stop the daemon
+                stopping = (
+                    (resp.get("op") == "shutdown" and resp.get("ok"))
+                    or lifecycle["stop"]
+                )
+                try:
+                    fout.write(json.dumps(resp) + "\n")
+                    fout.flush()
+                    served += 1
+                except OSError:
+                    if not stopping:
+                        raise  # client vanished mid-reply; conversation logs it
             if stopping:
                 return served, True
         return served, False

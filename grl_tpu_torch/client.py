@@ -151,7 +151,9 @@ class ServeClient:
 
     def request(self, op, **fields):
         """Send one request, block for its response; raise
-        :class:`ServeError` unless ``ok`` is true."""
+        :class:`ServeError` unless ``ok`` is true. The ``spans`` of a
+        profiled daemon's response are recorded in this process
+        (``utils.profiling.record``) and taken off the response."""
         if self._closed:
             raise ServeError("client is closed")
         req = {"op": op, **fields}
@@ -164,6 +166,11 @@ class ServeClient:
         if not line:  # EOF: daemon stopped (or died) mid-conversation
             raise ServeError(f"daemon closed the connection during {op!r}")
         resp = json.loads(line)
+        spans = resp.pop("spans", None)
+        if spans is not None:  # a profiled daemon's spans of this request
+            from .utils.profiling import record
+
+            record(spans)
         if not resp.get("ok"):
             raise ServeError(resp.get("error", "unknown daemon error"),
                              op=resp.get("op"))

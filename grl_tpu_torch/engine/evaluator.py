@@ -19,6 +19,14 @@
 Features and distance matrices stay on the device; only the CMC curve and
 mAP come back to the host.
 
+Under a profiler (``utils.profiling.span``) each ``extract_features`` call
+is an ``evaluator.extract_features`` span; on the dense path it holds
+``evaluator.loader_wait`` (the loader's ``next()``), ``evaluator.pack``
+(concatenating the pending clips and ids), ``evaluator.upload`` (the
+micro-batch's clips to the device), ``evaluator.describe`` (enqueueing the
+descriptor), ``evaluator.accumulate`` (the ids' upload and the per-tracklet
+sums) and ``evaluator.pool`` (the division by the clip counts).
+
 Under a data-parallel group (``mesh``, with ``evaluate(multihost=...)``)
 each rank describes its contiguous stripe of each catalog
 (``get_data(eval_stripe=True)``), and ``gather_striped_rows`` assembles
@@ -46,6 +54,7 @@ import torch
 from .. import resolve_device
 from ..data.transforms import normalize
 from ..parallel import gather_striped_rows, row_block, sharded_cosine_distance
+from ..utils.profiling import span
 from . import metrics
 from .rerank import re_ranking, warn_if_degenerate
 from .visualize import visualize_ranked_results
@@ -217,16 +226,17 @@ class Evaluator:
     def extract_features(self, loader):
         """Loader -> (features (N, 3C) device tensor, pids, camids); dense
         tracklets are clip-averaged."""
-        pids, camids = [], []
-        # eval mode on every call: a training step between two evaluations
-        # leaves the shared modules in train mode
-        self.cnn.eval()
-        self.siamese.eval()
-        if loader.dataset.sample == "dense":
-            feats = self._extract_dense(loader, len(loader.dataset), pids, camids)
-        else:
-            feats = self._extract_rows(loader, pids, camids)
-        return feats, np.asarray(pids), np.asarray(camids)
+        with span("evaluator.extract_features"):
+            pids, camids = [], []
+            # eval mode on every call: a training step between two evaluations
+            # leaves the shared modules in train mode
+            self.cnn.eval()
+            self.siamese.eval()
+            if loader.dataset.sample == "dense":
+                feats = self._extract_dense(loader, len(loader.dataset), pids, camids)
+            else:
+                feats = self._extract_rows(loader, pids, camids)
+            return feats, np.asarray(pids), np.asarray(camids)
 
     def _extract_rows(self, loader, pids, camids):
         rows = []
@@ -245,12 +255,22 @@ class Evaluator:
 
         def flush(clips_np, ids_np):
             nonlocal buf
-            d = self._describe(self._to_device(clips_np))
-            if buf is None:
-                buf = torch.zeros((n_items, d.shape[1]), dtype=d.dtype, device=self.device)
-            buf.index_add_(0, torch.from_numpy(ids_np).to(self.device), d)
+            with span("evaluator.upload"):
+                chunk = self._to_device(clips_np)
+            with span("evaluator.describe"):
+                d = self._describe(chunk)
+            with span("evaluator.accumulate"):
+                if buf is None:
+                    buf = torch.zeros((n_items, d.shape[1]), dtype=d.dtype, device=self.device)
+                buf.index_add_(0, torch.from_numpy(ids_np).to(self.device), d)
 
-        for clips, pid, camid in loader:
+        it = iter(loader)
+        while True:
+            with span("evaluator.loader_wait"):
+                batch = next(it, None)
+            if batch is None:
+                break
+            clips, pid, camid = batch
             n_clips = clips.shape[0]
             counts[item] = n_clips
             pend_clips.append(clips)
@@ -260,16 +280,21 @@ class Evaluator:
             camids.extend(np.atleast_1d(camid).tolist())
             item += 1
             while pending >= mb:
-                clips_np = np.concatenate(pend_clips)
-                ids_np = np.concatenate(pend_ids)
+                with span("evaluator.pack"):
+                    clips_np = np.concatenate(pend_clips)
+                    ids_np = np.concatenate(pend_ids)
                 flush(clips_np[:mb], ids_np[:mb])
                 pend_clips, pend_ids = [clips_np[mb:]], [ids_np[mb:]]
                 pending -= mb
         if pending:
-            flush(np.concatenate(pend_clips), np.concatenate(pend_ids))
+            with span("evaluator.pack"):
+                clips_np = np.concatenate(pend_clips)
+                ids_np = np.concatenate(pend_ids)
+            flush(clips_np, ids_np)
         if item != n_items:
             raise RuntimeError(f"extracted {item} tracklets, expected {n_items}")
-        return buf / torch.from_numpy(counts).to(self.device)[:, None]
+        with span("evaluator.pool"):
+            return buf / torch.from_numpy(counts).to(self.device)[:, None]
 
     @torch.inference_mode()
     def evaluate(self, query_loader, gallery_loader, cmc_topk=(1, 5, 10, 20), multihost=None):

@@ -23,6 +23,15 @@ Every device builder ends in the Jaccard min-sum, the hand-written min-plus
 kernel (``ops.minplus``), over V built in 16-byte aligned rows
 (``ops.padded_empty``) so the kernel reads it in place.
 
+Under a profiler (``utils.profiling.span``, each with the card's time of
+its work) the padded and one-program builders are spans by stage:
+``rerank.original`` (the joined, normalized distances),
+``rerank.nearest``, ``rerank.expand`` (the k-reciprocal sets, the two 0/1
+products and the expansion), ``rerank.query_expand`` (V and its k2
+average), ``rerank.min_sum`` and ``rerank.blend``. Of the staged and
+sharded builders only the blend that ``re_ranking`` shares with the
+staged route is spanned.
+
 With ``mesh`` (a ``parallel.Mesh``: one process per card) the staged
 builder is row-sharded over the group (``_re_ranking_sharded``): each rank
 builds, from its own block of the distances' columns, its rows of every
@@ -49,6 +58,7 @@ import torch.distributed as dist
 
 from ..ops import minplus, padded_empty
 from ..parallel import row_block
+from ..utils.profiling import span
 
 # B-row slab width of the deferred min-plus loop; row-block width of the
 # staged stages. Module constants so tests can shrink them and run the
@@ -97,44 +107,47 @@ def v_from_original(original, k1, k2):
     """Normalized distance matrix (n, n) -> membership-weight matrix V, in
     rows padded to 16 bytes (``ops.padded_empty``) so the min-plus kernel
     reads V and its query rows without a copy."""
-    n = original.shape[0]
-    order = nearest(original)
+    n, device = original.shape[0], original.device
+    with span("rerank.nearest", device=device):
+        order = nearest(original)
 
     def topk_adj(k):
         # numpy's rank[:, :k] clamps when k > n; so does grl_tpu
-        adj = torch.zeros((n, n), dtype=torch.bool, device=original.device)
+        adj = torch.zeros((n, n), dtype=torch.bool, device=device)
         return adj.scatter_(1, order[:, : min(k, n)], True)
 
-    reciprocal = topk_adj(k1 + 1)
-    reciprocal = reciprocal & reciprocal.T
+    with span("rerank.expand", device=device):
+        reciprocal = topk_adj(k1 + 1)
+        reciprocal = reciprocal & reciprocal.T
 
-    half = int(np.around(k1 / 2.0)) + 1
-    b = topk_adj(half)
-    b = b & b.T
-    b_sizes = b.sum(dim=1).to(torch.float32)
+        half = int(np.around(k1 / 2.0)) + 1
+        b = topk_adj(half)
+        b = b & b.T
+        b_sizes = b.sum(dim=1).to(torch.float32)
 
-    # 0/1 operands: every count is an integer ≤ k1+1, exact in bf16
-    rf = reciprocal.to(torch.bfloat16)
-    bf = b.to(torch.bfloat16)
-    overlap = (rf @ bf.T).to(torch.float32)
-    qualifies = reciprocal & (overlap > (2.0 / 3.0) * b_sizes[None, :])
-    expanded = qualifies.to(torch.bfloat16) @ bf
-    expansion = reciprocal | (expanded > 0)
+        # 0/1 operands: every count is an integer ≤ k1+1, exact in bf16
+        rf = reciprocal.to(torch.bfloat16)
+        bf = b.to(torch.bfloat16)
+        overlap = (rf @ bf.T).to(torch.float32)
+        qualifies = reciprocal & (overlap > (2.0 / 3.0) * b_sizes[None, :])
+        expanded = qualifies.to(torch.bfloat16) @ bf
+        expansion = reciprocal | (expanded > 0)
 
-    weights = torch.exp(-original) * expansion
-    if k2 == 1:
-        return torch.div(weights, weights.sum(dim=1, keepdim=True), out=padded_empty(n, n, weights.device))
-    v = weights / weights.sum(dim=1, keepdim=True)
-    del weights  # each n x n temporary freed as soon as it is spent
-    idx2 = order[:, : min(k2, n)]
-    last = idx2.shape[1] - 1
-    # summed in grl_tpu's order; an out-of-range column clamps as JAX's
-    # gather does (n < k2 only on toy sets)
-    acc = v[idx2[:, 0]]
-    for j in range(1, k2):
-        acc = acc + v[idx2[:, min(j, last)]]
-    del v
-    return torch.div(acc, k2, out=padded_empty(n, n, acc.device))
+    with span("rerank.query_expand", device=device):
+        weights = torch.exp(-original) * expansion
+        if k2 == 1:
+            return torch.div(weights, weights.sum(dim=1, keepdim=True), out=padded_empty(n, n, device))
+        v = weights / weights.sum(dim=1, keepdim=True)
+        del weights  # each n x n temporary freed as soon as it is spent
+        idx2 = order[:, : min(k2, n)]
+        last = idx2.shape[1] - 1
+        # summed in grl_tpu's order; an out-of-range column clamps as JAX's
+        # gather does (n < k2 only on toy sets)
+        acc = v[idx2[:, 0]]
+        for j in range(1, k2):
+            acc = acc + v[idx2[:, min(j, last)]]
+        del v
+        return torch.div(acc, k2, out=padded_empty(n, n, device))
 
 
 def _jaccard_blend(min_sum, original_q, lambda_value):
@@ -189,19 +202,23 @@ def re_ranking(q_g_dist=None, q_q_dist=None, g_g_dist=None, k1=20, k2=6, lambda_
         else:
             min_sum = min_sum_fn(v[:query_num], v)
     else:
-        original = torch.cat(
-            [torch.cat([q_q_dist, q_g_dist], dim=1), torch.cat([q_g_dist.T, g_g_dist], dim=1)],
-            dim=0,
-        )
-        q_g_dist = q_q_dist = g_g_dist = None
-        original = original.square().to(torch.float32)
-        original = (original / original.max(dim=0).values).T.contiguous()
+        device = q_g_dist.device
+        with span("rerank.original", device=device):
+            original = torch.cat(
+                [torch.cat([q_q_dist, q_g_dist], dim=1), torch.cat([q_g_dist.T, g_g_dist], dim=1)],
+                dim=0,
+            )
+            q_g_dist = q_q_dist = g_g_dist = None
+            original = original.square().to(torch.float32)
+            original = (original / original.max(dim=0).values).T.contiguous()
         v = v_from_original(original, k1, k2)
-        min_sum = min_sum_fn(v[:query_num], v)
+        with span("rerank.min_sum", device=device):
+            min_sum = min_sum_fn(v[:query_num], v)
         original_q = original[:query_num]
         del original
     del v
-    final = _jaccard_blend(min_sum, original_q, lambda_value)
+    with span("rerank.blend", device=min_sum.device):
+        final = _jaccard_blend(min_sum, original_q, lambda_value)
     return final[:, query_num : query_num + gallery_num]
 
 
@@ -562,18 +579,21 @@ def re_ranking_padded(q_g, q_q, g_g, nq, ng, k1=20, k2=6, lambda_value=0.3, min_
     1`` (below it the top-k clamps differ from the unpadded math)."""
     Q, G = q_q.shape[0], g_g.shape[0]
     device = q_q.device
-    valid = torch.cat([torch.arange(Q, device=device) < nq, torch.arange(G, device=device) < ng])
-    pair = valid[:, None] & valid[None, :]
-    original = torch.cat([torch.cat([q_q, q_g], dim=1), torch.cat([q_g.T, g_g], dim=1)], dim=0)
-    original = torch.where(pair, original.square().to(torch.float32), 0.0)
-    colmax = original.max(dim=0).values.clamp(min=1e-30)
-    original = torch.where(pair, (original / colmax).T, 2.0).contiguous()
-    del pair
-    original.fill_diagonal_(0.0)
+    with span("rerank.original", device=device):
+        valid = torch.cat([torch.arange(Q, device=device) < nq, torch.arange(G, device=device) < ng])
+        pair = valid[:, None] & valid[None, :]
+        original = torch.cat([torch.cat([q_q, q_g], dim=1), torch.cat([q_g.T, g_g], dim=1)], dim=0)
+        original = torch.where(pair, original.square().to(torch.float32), 0.0)
+        colmax = original.max(dim=0).values.clamp(min=1e-30)
+        original = torch.where(pair, (original / colmax).T, 2.0).contiguous()
+        del pair
+        original.fill_diagonal_(0.0)
     v = v_from_original(original, k1, k2)
-    min_sum = min_sum_fn(v[:Q], v)
+    with span("rerank.min_sum", device=device):
+        min_sum = min_sum_fn(v[:Q], v)
     del v
-    final = _jaccard_blend(min_sum, original[:Q], lambda_value)
+    with span("rerank.blend", device=device):
+        final = _jaccard_blend(min_sum, original[:Q], lambda_value)
     return final[:, Q:]
 
 

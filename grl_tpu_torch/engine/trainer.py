@@ -9,6 +9,14 @@ numbers, and the returned dict follow grl_tpu; the writer is flushed at
 the end of each epoch. A ``stop_event`` ends the epoch at the next step
 boundary.
 
+Under a profiler (``utils.profiling.span``) each pass of the loop is a
+``trainer.iteration`` span holding ``trainer.data_wait`` (the loader's
+``next()``), ``trainer.upload``, ``trainer.augment``, ``trainer.step``
+(enqueueing the train step) and ``trainer.read`` (the previous step's
+metrics read and written); the pass that finds the loader spent holds only
+its ``trainer.data_wait``, and the last step's ``trainer.read`` follows the
+loop.
+
 With ``mesh`` (a data-parallel group) the loader yields this rank's
 contiguous slice of each global batch. The augmentation draws its randoms
 for the whole global batch from the trainer's generator, which every rank
@@ -21,6 +29,7 @@ another step leaves them waiting in that step's reductions forever.
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import torch
@@ -28,6 +37,7 @@ import torch
 from .. import resolve_device
 from ..data.transforms import augment
 from ..utils.meters import AverageMeter
+from ..utils.profiling import span
 from .train_step import to_device
 
 
@@ -110,25 +120,38 @@ class Trainer:
 
         ranks = 1 if self.mesh is None else self.mesh.size
         pending = None
-        for i, (clips_u8, pids, _camids) in enumerate(loader):
-            if self._stop_requested(i):
-                print(f"Epoch: [{epoch}][{i}/{num_steps}]\tstop requested; ending epoch early")
-                break
-            data_time.update(time.time() - end)
+        it = iter(loader)
+        for i in itertools.count():
+            with span("trainer.iteration"):
+                with span("trainer.data_wait"):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                clips_u8, pids, _camids = batch
+                if self._stop_requested(i):
+                    print(f"Epoch: [{epoch}][{i}/{num_steps}]\tstop requested; ending epoch early")
+                    break
+                data_time.update(time.time() - end)
 
-            b = clips_u8.shape[0]
-            rows = None if self.mesh is None else (self.mesh.rank * b, ranks * b)
-            clips = augment(self.gen, to_device(clips_u8, self.device), train=True, rows=rows)
-            train_state, m = self.train_step(train_state, clips, pids, lr)
+                b = clips_u8.shape[0]
+                rows = None if self.mesh is None else (self.mesh.rank * b, ranks * b)
+                with span("trainer.upload"):
+                    clips_u8 = to_device(clips_u8, self.device)
+                with span("trainer.augment"):
+                    clips = augment(self.gen, clips_u8, train=True, rows=rows)
+                with span("trainer.step"):
+                    train_state, m = self.train_step(train_state, clips, pids, lr)
 
-            if pending is not None:
-                materialize(pending)
-            pending = (m, b * ranks, i)
+                if pending is not None:
+                    with span("trainer.read"):
+                        materialize(pending)
+                pending = (m, b * ranks, i)
 
-            batch_time.update(time.time() - end)
-            end = time.time()
+                batch_time.update(time.time() - end)
+                end = time.time()
         if pending is not None:
-            materialize(pending)
+            with span("trainer.read"):
+                materialize(pending)
         if self.mesh is not None:
             # once per epoch on every rank: a signal after the last periodic
             # check, or on one rank only, still reaches every stop_event

@@ -292,6 +292,34 @@ def test_async_snapshot_is_isolated_from_the_next_steps_on_the_card(gen, tmp_pat
     assert ckpt.last_write_seconds > 0 and ckpt.last_bytes > 0
 
 
+def test_rerank_stage_spans_time_the_card_and_add_nothing_to_its_trace(gen):
+    """Under a CUDA-only profiler the one-program builder's stages record
+    their device milliseconds from CUDA events, answer as without the
+    profiler, and leave no event of their own on the device timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grl_tpu_torch.utils import profiling
+
+    feats = torch.randn(120, 64, device="cuda", generator=gen)
+    feats = feats / feats.norm(dim=1, keepdim=True)
+    dists = cosine_distance(feats[:30], feats), _euclidean(feats[:30], feats[:30]), _euclidean(feats, feats)
+    want = re_ranking(*dists)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = re_ranking(*dists)
+        torch.cuda.synchronize()
+    spans = {sp.name: sp for sp in profiling.spans()}
+    profiling.clear()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    stages = {"rerank.original", "rerank.nearest", "rerank.expand", "rerank.query_expand", "rerank.min_sum",
+              "rerank.blend"}
+    assert set(spans) == stages and all(sp.device_ms > 0 for sp in spans.values())
+    device = [ev.name() for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == torch.autograd.DeviceType.CUDA and ev.duration_ns() > 0]
+    assert any("minplus" in name for name in device)
+    assert not [name for name in device if name in stages or "Event" in name]
+
+
 def test_staged_and_padded_builders_on_card_match_plain_min_sum(gen, monkeypatch):
     """The staged builder (3 min-plus slabs, ragged row blocks) and the
     capacity-padded builder launch the kernel and agree with the plain

@@ -1,12 +1,7 @@
 """The port's retrieval metrics (``engine/metrics.py``: ``cmc`` with every
 option, ``mean_ap``, ``accuracy``, ``evaluate_market``) against grl_tpu's
-on seeded distance matrices, tie-heavy ones included, and its profiling
-hooks (``utils/profiling.py``) on the CPU.
+on seeded distance matrices, tie-heavy ones included.
 """
-
-import json
-import os
-import time
 
 import numpy as np
 import pytest
@@ -14,7 +9,6 @@ import torch
 
 from grl_tpu.engine import metrics as J
 from grl_tpu_torch.engine import metrics as T
-from grl_tpu_torch.utils.profiling import ThroughputMeter, trace
 
 
 def case(seed, ties):
@@ -76,27 +70,3 @@ def test_accuracy_equals_grl_tpu():
     rng = np.random.RandomState(6)
     logits, target = rng.randn(50, 7), rng.randint(0, 7, 50)
     assert T.accuracy(logits, target, topk=(1, 3, 5)) == J.accuracy(logits, target, topk=(1, 3, 5))
-
-
-def test_throughput_meter():
-    meter = ThroughputMeter(device="cpu")
-    with pytest.raises(RuntimeError, match="start"):
-        meter.update(1)
-    meter.start()
-    for n in (4, 6):
-        time.sleep(0.01)
-        meter.update(n)
-    assert meter.items == 10 and meter.steps == 2 and meter.elapsed >= 0.02
-    assert meter.items_per_sec == pytest.approx(10 / meter.elapsed)
-    assert meter.steps_per_sec == pytest.approx(2 / meter.elapsed)
-    meter.reset()
-    assert meter.items_per_sec == meter.steps_per_sec == 0.0
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path / "prof")) as prof:
-        torch.randn(64, 64) @ torch.randn(64, 64)
-    assert prof is not None
-    path = tmp_path / "prof" / "trace.json"
-    events = json.load(open(path))["traceEvents"]
-    assert os.path.getsize(path) > 0 and any("mm" in e.get("name", "") for e in events)
