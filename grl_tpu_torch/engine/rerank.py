@@ -2,10 +2,13 @@
 
 Counterpart of ``grl_tpu/engine/rerank.py``. Definitions (n = #query +
 #gallery, D = column-normalized squared dist):
-- A[i, j]      = j among i's k1+1 nearest (incl. self)
-- R = A ∧ Aᵀ   : k-reciprocal sets
-- B            : same with ⌊k1/2⌋-neighborhoods
-- expansion: R'(i) = R(i) ∪ { B(c) : c ∈ R(i), |B(c) ∩ R(i)| > ⅔|B(c)| }
+- F(i)         = i's k1+1 nearest (incl. self), a list
+- R(i)         = { j ∈ F(i) : i ∈ F(j) } : k-reciprocal sets
+- B            : same with the round(k1/2)+1 nearest, H(i)
+- expansion: R'(i) = R(i) ∪ { B(c) : c ∈ R(i), |B(c) ∩ R(i)| > ⅔|B(c)| },
+  built from the lists F and H by gathers and compares
+  (``_expansion_rows``): n·(k1+1)·|H|·(k1+1) steps, where the dense form,
+  R = A ∧ Aᵀ for the top-k adjacency A, takes two n³ 0/1 products
 - V[i]         = exp(-D[i]) masked to R'(i), row-normalized
 - query expansion: V ← mean of V over each row's k2 nearest
 - Jaccard dist = 1 − Σ_k min(V[i,k], V[j,k]) / (2 − Σ_k min(...))
@@ -26,8 +29,8 @@ kernel (``ops.minplus``), over V built in 16-byte aligned rows
 Under a profiler (``utils.profiling.span``, each with the card's time of
 its work) the padded and one-program builders are spans by stage:
 ``rerank.original`` (the joined, normalized distances),
-``rerank.nearest``, ``rerank.expand`` (the k-reciprocal sets, the two 0/1
-products and the expansion), ``rerank.query_expand`` (V and its k2
+``rerank.nearest``, ``rerank.expand`` (the k-reciprocal sets and their
+expansion, from the neighbour lists), ``rerank.query_expand`` (V and its k2
 average), ``rerank.min_sum`` and ``rerank.blend``. Of the staged and
 sharded builders only the blend that ``re_ranking`` shares with the
 staged route is spanned.
@@ -111,27 +114,10 @@ def v_from_original(original, k1, k2):
     with span("rerank.nearest", device=device):
         order = nearest(original)
 
-    def topk_adj(k):
-        # numpy's rank[:, :k] clamps when k > n; so does grl_tpu
-        adj = torch.zeros((n, n), dtype=torch.bool, device=device)
-        return adj.scatter_(1, order[:, : min(k, n)], True)
-
     with span("rerank.expand", device=device):
-        reciprocal = topk_adj(k1 + 1)
-        reciprocal = reciprocal & reciprocal.T
-
+        # numpy's rank[:, :k] clamps when k > n; so does grl_tpu, and so does the slice
         half = int(np.around(k1 / 2.0)) + 1
-        b = topk_adj(half)
-        b = b & b.T
-        b_sizes = b.sum(dim=1).to(torch.float32)
-
-        # 0/1 operands: every count is an integer ≤ k1+1, exact in bf16
-        rf = reciprocal.to(torch.bfloat16)
-        bf = b.to(torch.bfloat16)
-        overlap = (rf @ bf.T).to(torch.float32)
-        qualifies = reciprocal & (overlap > (2.0 / 3.0) * b_sizes[None, :])
-        expanded = qualifies.to(torch.bfloat16) @ bf
-        expansion = reciprocal | (expanded > 0)
+        expansion = _expansion_rows(order[:, : k1 + 1], order[:, :half])
 
     with span("rerank.query_expand", device=device):
         weights = torch.exp(-original) * expansion
@@ -148,6 +134,45 @@ def v_from_original(original, k1, k2):
             acc = acc + v[idx2[:, min(j, last)]]
         del v
         return torch.div(acc, k2, out=padded_empty(n, n, device))
+
+
+def _expansion_rows(idx_k1, idx_half, start=0, rows=None):
+    """The bool expansion ``R'`` of rows ``[start, start + rows)`` (default:
+    to the end), (rows, n), from every row's nearest indices: ``idx_k1``
+    (n, k1+1) and ``idx_half`` (n, round(k1/2)+1), each row's first columns
+    of ``nearest``'s order (clamped to n).
+
+    The definition's dense ``A ∧ Aᵀ`` and its two 0/1 products, worked out
+    on the lists: ``R(i)`` is the members ``j`` of ``F(i) = idx_k1[i]``
+    with ``i ∈ F(j)``, a mask over ``F(i)`` from the gather ``F[F(i)]``;
+    ``B(c)`` the same over ``H(c) = idx_half[c]``; ``|R(i) ∩ B(c)|`` by
+    comparing ``H(c)`` with ``R(i)`` (a row's indices are distinct); and
+    ``R'(i)``, at most k1+1 + (k1+1)·|H| columns, scattered into zeros by a
+    maximum, which no order of duplicate columns changes. The counts are
+    the products' integers, so ``R'`` is theirs bit for bit. The
+    temporaries take ~(k1+1)²·|H| bytes a row, under the output's n bytes
+    a row at the staged builder's scale."""
+    n, device = idx_k1.shape[0], idx_k1.device
+    rows = n - start if rows is None else rows
+    idx_k1, idx_half = idx_k1.long(), idx_half.long()
+    item = torch.arange(n, device=device)
+    # B(c) as a mask over H(c), for every c
+    b_mask = (idx_half[idx_half] == item[:, None, None]).any(dim=2)
+    f = idx_k1[start : start + rows]
+    r_mask = (idx_k1[f] == item[start : start + rows, None, None]).any(dim=2)
+    h, bc = idx_half[f], b_mask[f]  # H(c) and B(c) over it, for each c in F(i)
+    members = torch.where(r_mask, f, -1)
+    in_r = (h[..., None] == members[:, None, None, :]).any(dim=3)
+    overlap = (in_r & bc).sum(dim=2, dtype=torch.float32)
+    qualifies = r_mask & (overlap > (2.0 / 3.0) * bc.sum(dim=2, dtype=torch.float32))
+    grow = (qualifies[..., None] & bc).to(torch.uint8)
+    out = torch.zeros((rows, n), dtype=torch.uint8, device=device)
+    out.scatter_reduce_(1, f, r_mask.to(torch.uint8), reduce="amax")
+    # one column of the half lists at a time, so that no matrix is wider than
+    # the lists: a sharded rank holds none past its rows' share of n
+    for b in range(h.shape[2]):
+        out.scatter_reduce_(1, h[..., b], grow[..., b], reduce="amax")
+    return out.view(torch.bool)
 
 
 def _jaccard_blend(min_sum, original_q, lambda_value):
@@ -240,8 +265,8 @@ def _re_ranking_sharded(box, q, mesh, k1, k2, lambda_value, min_sum_fn, valid):
       maximum (the column maximum of c);
     - s2: its rows' top-k indices, all-gathered (n × k int32: the only view
       of other rows that the set algebra needs);
-    - s3: its rows of ``A ∧ Aᵀ`` and of the expansion, ``Aᵀ``'s rows and the
-      half sets' row slabs rebuilt locally from the gathered indices;
+    - s3: its rows of the expansion, from the gathered indices
+      (``_expansion_rows``);
     - s4: its rows of V, in place;
     - s5: its rows of the expanded V, from V's row slabs broadcast by
       their owners in turn (no rank holds V whole);
@@ -263,7 +288,7 @@ def _re_ranking_sharded(box, q, mesh, k1, k2, lambda_value, min_sum_fn, valid):
     half = int(np.around(k1 / 2.0)) + 1
     top = _gather_rows(_s2_topk(neg, max(k1 + 1, half, k2), block).to(torch.int32), mesh)  # (n, k)
     mx_q = _gather_rows(mx, mesh)[:q]
-    expansion = _s3b_rows(_reciprocal_rows(top[:, : k1 + 1], start, per), top[:, :half], block)
+    expansion = _expansion_rows(top[:, : k1 + 1], top[:, :half], start, per)
     # s4, in place: neg becomes V
     v = neg.exp_()
     v.mul_(expansion)
@@ -333,42 +358,6 @@ def _s1_rows(cols, q, start, per, n, valid, block):
     diag = torch.arange(0 if masked else r, per, device=device)
     out[diag, start + diag] = 0.0
     return out, mx, sq_q, col_valid
-
-
-def _reciprocal_rows(idx, start, rows):
-    """s3a: rows ``[start, start + rows)`` of the bool ``A ∧ Aᵀ``, where row
-    j of the top-k adjacency ``A`` holds ``idx[j]`` (every row's indices):
-    A's rows and Aᵀ's are scattered straight from the indices."""
-    n = idx.shape[0]
-    a = torch.zeros((rows, n), dtype=torch.bool, device=idx.device)
-    a.scatter_(1, idx[start : start + rows].long(), True)
-    at = torch.zeros_like(a)
-    hit = (idx >= start) & (idx < start + rows)
-    at[idx[hit].long() - start, hit.nonzero()[:, 0]] = True
-    return a.logical_and_(at)
-
-
-def _s3b_rows(r, idx_half, block):
-    """s3b: the bool expansion ``R'`` of the reciprocal sets' rows ``r`` (all
-    n, or a rank's), ``block`` rows at a time. The half sets ``B`` are
-    rebuilt a slab of ``block`` rows at a time from every row's indices
-    ``idx_half``, and each slab serves both products, the overlap
-    ``|R(i) ∩ B(c)|`` with its columns and the expansion by its rows, with
-    only (rows, n) slabs cast to bf16 (0/1 operands: every count is an
-    integer ≤ k1+1, exact in bf16 under any order of accumulation)."""
-    rows, n = r.shape
-    out = r.clone()
-    for m in range(0, n, block):
-        b = _reciprocal_rows(idx_half, m, min(block, n - m))
-        thresh = (2.0 / 3.0) * b.sum(dim=1, dtype=torch.float32)
-        bbf = b.to(torch.bfloat16)
-        del b
-        for s in range(0, rows, block):
-            rb = r[s : s + block]
-            overlap = (rb.to(torch.bfloat16) @ bbf.T).to(torch.float32)
-            qual = rb[:, m : m + block] & (overlap > thresh[None, :])
-            out[s : s + block] |= (qual.to(torch.bfloat16) @ bbf) > 0
-    return out
 
 
 def _padded_rows(x, a, b):
@@ -468,9 +457,7 @@ def _build_v_staged(box, k1=20, k2=6, defer_qexpand=False, valid=None):
       ``re_ranking_padded`` does (pads at −2.0, zero diagonal);
     - s2 keeps the top-k indices only, sorted a row block at a time in
       ``top_k``'s order (``lax.top_k``'s);
-    - s3a scatters the bool reciprocal adjacency ``A ∧ Aᵀ`` from the indices;
-    - s3b counts the expansion from bf16 slabs of the half sets, each slab
-      rebuilt from the indices (integers ≤ k1+1, exact);
+    - s3 builds the bool expansion from the indices (``_expansion_rows``);
     - s4 forms ``exp(neg)·expansion``, row-normalized, in place over neg;
     - s5 averages each row over its k2 nearest, row block by row block.
 
@@ -490,7 +477,7 @@ def _build_v_staged(box, k1=20, k2=6, defer_qexpand=False, valid=None):
     idx_k1, idx_half = top[:, : k1 + 1], top[:, :half]
     idx_2 = top[:, :k2] if k2 != 1 else None
     original_q = -neg[:q]
-    expansion = _s3b_rows(_reciprocal_rows(idx_k1, 0, n), idx_half, _STAGE_BLOCK)
+    expansion = _expansion_rows(idx_k1, idx_half)
     # s4, in place: neg becomes V (exp(-original) == exp(neg))
     v = neg.exp_()
     v.mul_(expansion)

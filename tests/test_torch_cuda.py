@@ -357,6 +357,41 @@ def test_staged_and_padded_builders_on_card_match_plain_min_sum(gen, monkeypatch
     torch.testing.assert_close(masked[:30, :150], staged, rtol=0, atol=TOL)
 
 
+def test_padded_expansion_on_card_equals_dense_products_at_the_serve_shape(gen, monkeypatch):
+    """At the serve daemon's shape (16 of 32 query rows, zero past them, and
+    11310 gallery rows: identity-clustered unit 6144-d features),
+    ``re_ranking_padded``'s expansion from the neighbour lists, and its
+    final distances, are the dense 0/1 products' bit for bit."""
+    from torch_oracle import dense_expansion
+
+    from grl_tpu_torch.engine import rerank
+
+    nq, q_pad, g, dim = 16, 32, 11310, 6144
+    centres = torch.randn(636, dim, device="cuda", generator=gen)
+    centres = centres / centres.norm(dim=1, keepdim=True)
+    ids = torch.randint(0, 636, (q_pad + g,), device="cuda", generator=gen)
+    feats = centres[ids] + 0.8 * torch.randn(q_pad + g, dim, device="cuda", generator=gen) / dim**0.5
+    feats = feats / feats.norm(dim=1, keepdim=True)
+    qf, gf = feats[:q_pad].clone(), feats[q_pad:]
+    qf[nq:] = 0.0
+    dists = cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)
+
+    real, calls = rerank._expansion_rows, []
+
+    def recorded(*args, **kw):
+        calls.append((args, kw, real(*args, **kw)))
+        return calls[-1][2]
+
+    monkeypatch.setattr(rerank, "_expansion_rows", recorded)
+    got = rerank.re_ranking_padded(*dists, nq, g)
+    ((idx_k1, idx_half), kw, expansion), = calls
+    assert kw == {} and idx_k1.shape == (q_pad + g, 21) and idx_half.shape == (q_pad + g, 11)
+    assert torch.equal(expansion, dense_expansion(idx_k1, idx_half))
+    monkeypatch.setattr(rerank, "_expansion_rows", dense_expansion)
+    want = rerank.re_ranking_padded(*dists, nq, g)
+    assert torch.equal(got[:nq, :g], want[:nq, :g])
+
+
 def test_artifact_exported_on_card_serves_in_process(gen, tmp_path):
     """export-model on the card, then the daemon over stdin/stdout in this
     process: the program's descriptors equal the modules', and a re-ranked

@@ -17,8 +17,10 @@ from grl_tpu.engine.rerank import re_ranking_device
 from grl_tpu_torch.engine import metrics as tmetrics
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
 from grl_tpu.engine.rerank import _v_from_original as j_v_from_original
+from grl_tpu_torch.engine import rerank as R
 from grl_tpu_torch.engine.rerank import nearest, re_ranking, v_from_original, warn_if_degenerate
 from grl_tpu_torch.ops.minplus import aligned
+from torch_oracle import dense_expansion
 
 
 def _synthetic_dists(q, g, dim=32, seed=0):
@@ -139,3 +141,65 @@ def test_v_is_built_in_16_byte_rows_and_matches_grl_tpu(k2):
     assert aligned(v) is v and aligned(query_rows) is query_rows
     want = np.asarray(j_v_from_original(original, 20, k2))
     np.testing.assert_allclose(v.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _lists(mats, k1, start=0, rows=None, dtype=torch.int64):
+    """The nearest lists of the joined, normalized distances, as
+    ``v_from_original`` hands them to ``_expansion_rows`` (the sharded
+    builder: int32, with its row range)."""
+    qg, qq, gg = mats
+    original = np.block([[qq, qg], [qg.T, gg]]) ** 2
+    order = nearest(torch.from_numpy((original / original.max(0)).T.astype(np.float32))).to(dtype)
+    half = int(np.around(k1 / 2.0)) + 1
+    return [((order[:, : k1 + 1], order[:, :half], start, rows), {})]
+
+
+def _routed(run):
+    """Every call that a route makes to ``_expansion_rows``, its arguments
+    as given (the route's own clamps, pads and row ranges)."""
+    def lists(monkeypatch):
+        calls, real = [], R._expansion_rows
+        with monkeypatch.context() as m:
+            m.setattr(R, "_expansion_rows", lambda *a, **kw: calls.append((a, kw)) or real(*a, **kw))
+            run()
+        assert calls
+        return calls
+    return lists
+
+
+def _padded_inputs(nq=20, ng=70, Q=24, G=90):
+    """The duplicated layout in capacity-padded buffers of garbage."""
+    rng = np.random.RandomState(4)
+    mats = _duplicated_layout(q=nq, g=ng - nq, seed=2)[:3]
+    pads = [rng.choice(np.array([1e6, -5.0, 3e-8, 0.0], np.float32), size=shape) for shape in [(Q, G), (Q, Q), (G, G)]]
+    for pad, m in zip(pads, mats):
+        pad[: m.shape[0], : m.shape[1]] = m
+    return [torch.from_numpy(p) for p in pads]
+
+
+EXPANSION_CASES = {
+    "random_k1_20": lambda mp: _lists(_synthetic_dists(25, 90), 20),
+    "random_seed5_k1_7": lambda mp: _lists(_synthetic_dists(30, 120, seed=5), 7),
+    "duplicated_ties_k1_20": lambda mp: _lists(_duplicated_layout()[:3], 20),
+    "duplicated_ties_k1_5": lambda mp: _lists(_duplicated_layout(seed=1)[:3], 5),
+    "n_at_k1_plus_1": lambda mp: _lists(_synthetic_dists(4, 17), 20),
+    "n_below_k1_plus_1": lambda mp: _lists(_synthetic_dists(4, 9), 20),
+    "row_range_int32": lambda mp: _lists(_synthetic_dists(25, 90), 20, start=37, rows=50, dtype=torch.int32),
+    "padded_route": _routed(lambda: R.re_ranking_padded(*_padded_inputs(), 20, 70)),
+    "masked_staged_route": _routed(lambda: R.re_ranking(*_padded_inputs(), staged=True, valid=(20, 70))),
+}
+
+
+def _row_range(idx_k1, idx_half, start=0, rows=None):
+    return start, idx_k1.shape[0] - start if rows is None else rows
+
+
+@pytest.mark.parametrize("case", sorted(EXPANSION_CASES))
+def test_expansion_from_lists_equals_dense_products(monkeypatch, case):
+    """The expansion built from the neighbour lists is the dense 0/1
+    products' bit for bit, on every row range a route asks for."""
+    for args, kw in EXPANSION_CASES[case](monkeypatch):
+        got = R._expansion_rows(*args, **kw)
+        start, rows = _row_range(*args, **kw)
+        assert got.dtype == torch.bool and got.shape == (rows, args[0].shape[0])
+        assert torch.equal(got, dense_expansion(args[0], args[1])[start : start + rows])

@@ -165,3 +165,25 @@ def siamese(p, s, x, training):
     diff = (pp[:, None] - pg[None, :]).pow(2).reshape(half * half, -1)
     scores = linear(p["classifierlinear"], bn(p["classifierBN"], s["classifierBN"], diff, training))
     return scores.reshape(half, half, 2), out
+
+
+def dense_expansion(idx_k1, idx_half):
+    """Re-ranking's k-reciprocal expansion in its dense form, the
+    definition's own: the (n, n) bool adjacencies of every row's nearest
+    indices ``idx_k1`` and ``idx_half``, ``A ∧ Aᵀ`` of each, and the two
+    0/1 products ``|R(i) ∩ B(c)|`` and ``∪ B(c)`` over the qualifying ``c``
+    in bf16 (integers ≤ k1+1, exact). The oracle of
+    ``engine.rerank._expansion_rows``."""
+    n = idx_k1.shape[0]
+
+    def mutual(idx):
+        adj = torch.zeros((n, n), dtype=torch.bool, device=idx.device)
+        adj.scatter_(1, idx.long(), True)
+        return adj & adj.T
+
+    reciprocal, b = mutual(idx_k1), mutual(idx_half)
+    b_sizes = b.sum(dim=1).to(torch.float32)
+    bf = b.to(torch.bfloat16)
+    overlap = (reciprocal.to(torch.bfloat16) @ bf.T).to(torch.float32)
+    qualifies = reciprocal & (overlap > (2.0 / 3.0) * b_sizes[None, :])
+    return reciprocal | ((qualifies.to(torch.bfloat16) @ bf) > 0)
