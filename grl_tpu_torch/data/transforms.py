@@ -26,15 +26,25 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def normalize(clips):
+def imagenet_stats(channels, device):
+    """The ImageNet mean and std of ``channels`` (3k) channels as float32
+    tensors on ``device``: each 3-channel group gets the same. Made from
+    host memory, so on a card the copy waits for the device's queue."""
+    reps = channels // 3
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device).repeat(reps)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device).repeat(reps)
+    return mean, std
+
+
+def normalize(clips, stats=None):
     """uint8/float (..., h, w, 3k) -> normalized float32, same layout.
 
     Channels beyond 3 are stacked modalities (RGB + optical flow); each
-    3-channel group gets the same ImageNet stats."""
+    3-channel group gets the same ImageNet stats. ``stats``: the clips'
+    ``imagenet_stats`` kept on their device by the caller (made anew when
+    not given)."""
     x = clips.to(torch.float32) / 255.0
-    reps = clips.shape[-1] // 3
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device).repeat(reps)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device).repeat(reps)
+    mean, std = imagenet_stats(clips.shape[-1], x.device) if stats is None else stats
     return (x - mean) / std
 
 

@@ -5,7 +5,10 @@
   mean of x_corr) -> 3·C dims (6144 for ResNet-50);
 - dense path: every consecutive clip of a tracklet is described and the
   descriptors averaged; clips of many tracklets are packed into each
-  micro-batch and added into per-tracklet sums on the device;
+  micro-batch and added into per-tracklet sums on the device; a
+  micro-batch is copied once, into one of two reused staging slots (pinned
+  on a card, so its upload waits for nothing and the host fills the next
+  slot while the card describes this one);
 - rrs_test path: one clip per tracklet, rows written in order, through
   ``describe_clips`` (each chunk padded to one of a few fixed shapes, as
   grl_tpu pads it);
@@ -21,11 +24,14 @@ mAP come back to the host.
 
 Under a profiler (``utils.profiling.span``) each ``extract_features`` call
 is an ``evaluator.extract_features`` span; on the dense path it holds
-``evaluator.loader_wait`` (the loader's ``next()``), ``evaluator.pack``
-(concatenating the pending clips and ids), ``evaluator.upload`` (the
-micro-batch's clips to the device), ``evaluator.describe`` (enqueueing the
-descriptor), ``evaluator.accumulate`` (the ids' upload and the per-tracklet
-sums) and ``evaluator.pool`` (the division by the clip counts).
+``evaluator.loader_wait`` (the loader's ``next()``), and per micro-batch
+``evaluator.stage_wait`` (on a card, only when the host waits for a
+staging slot's last upload to run), ``evaluator.pack`` (copying the
+pending clips and their ids into the slot), ``evaluator.upload``
+(enqueueing the slot's copy to the device), ``evaluator.describe``
+(enqueueing the descriptor) and ``evaluator.accumulate`` (enqueueing the
+per-tracklet sums); then ``evaluator.pool`` (the division by the clip
+counts).
 
 Under a data-parallel group (``mesh``, with ``evaluate(multihost=...)``)
 each rank describes its contiguous stripe of each catalog
@@ -45,6 +51,7 @@ one-rank group runs the one-card tail.
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import NamedTuple
 
@@ -52,7 +59,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.transforms import normalize
+from ..data.transforms import imagenet_stats, normalize
 from ..parallel import gather_striped_rows, row_block, sharded_cosine_distance
 from ..utils.profiling import span
 from . import metrics
@@ -98,10 +105,17 @@ def make_descriptor_fn(cnn, siamese):
     corr -> concat[x_uncorr, pooled, mean-over-t corr]. ``describe`` takes
     uint8 clips (b, t, h, w, 3) on the models' device. The descriptor is
     fp32 under any compute dtype: the pooled segment is an fp32 product, and
-    the bf16 segments are promoted to it, as grl_tpu's concatenate does."""
+    the bf16 segments are promoted to it, as grl_tpu's concatenate does.
+    The normalization's stats are made on a device at the first call there
+    and kept: made anew, their copy from host memory would wait for the
+    card to finish the work queued before each call."""
+    stats = {}  # (channels, device) -> imagenet_stats
 
     def describe(clips_u8):
-        x_uncorr, x_corr = cnn(normalize(clips_u8))
+        key = (clips_u8.shape[-1], clips_u8.device)
+        if key not in stats:
+            stats[key] = imagenet_stats(*key)
+        x_uncorr, x_corr = cnn(normalize(clips_u8, stats[key]))
         pooled = siamese.self_attention(x_corr)
         return torch.cat([x_uncorr.to(pooled.dtype), pooled, x_corr.mean(dim=1).to(pooled.dtype)], dim=1)
 
@@ -134,6 +148,16 @@ class EvalResult(NamedTuple):
     gf: torch.Tensor
 
 
+class _Slot(NamedTuple):
+    """One staging slot of the dense path (``Evaluator._staging``)."""
+
+    clips: torch.Tensor
+    ids: torch.Tensor
+    device_clips: torch.Tensor
+    device_ids: torch.Tensor
+    uploaded: object  # a torch.cuda.Event on a card, else None
+
+
 class Evaluator:
     def __init__(self, cnn, siamese, micro_batch=64, rerank=False, rerank_k1=20, rerank_k2=6,
                  rerank_lambda=0.3, save_distmat=None, visual_dir=None, device=None, mesh=None):
@@ -154,6 +178,7 @@ class Evaluator:
         self.save_distmat = save_distmat
         self.visual_dir = visual_dir
         self._describe = make_descriptor_fn(self.cnn, self.siamese)
+        self._slots = None  # (key, the dense path's two staging slots): ``_staging``
 
     def _distances(self, qf, gf, mesh):
         """The final (q, q+g) distance matrix and the rows of it that this
@@ -246,23 +271,76 @@ class Evaluator:
             camids.extend(np.atleast_1d(camid).tolist())
         return torch.cat(rows)
 
+    def _staging(self, clip_shape, dtype):
+        """The dense path's two staging slots for micro-batches of clips of
+        ``clip_shape`` and ``dtype``: made at the first micro-batch, kept
+        across calls while the shape, the dtype and ``micro_batch`` hold.
+        On a card a slot's host buffers are pinned, so its upload is an
+        asynchronous copy into its device buffers, and ``uploaded`` is
+        recorded once that copy is enqueued; on the CPU the host buffers
+        are the device's and there is no event."""
+        key = (self.micro_batch, tuple(clip_shape), dtype)
+        if self._slots is None or self._slots[0] != key:
+            self._slots = None  # frees the old buffers before the new ones are made
+            cuda = self.device.type == "cuda"
+
+            def slot():
+                clips = torch.empty((self.micro_batch, *clip_shape), dtype=dtype, pin_memory=cuda)
+                ids = torch.empty(self.micro_batch, dtype=torch.int64, pin_memory=cuda)
+                if not cuda:
+                    return _Slot(clips, ids, clips, ids, None)
+                return _Slot(clips, ids, torch.empty_like(clips, device=self.device),
+                             torch.empty_like(ids, device=self.device), torch.cuda.Event(blocking=True))
+
+            self._slots = (key, (slot(), slot()))
+        return self._slots[1]
+
     def _extract_dense(self, loader, n_items, pids, camids):
+        """Clips of many tracklets packed into micro-batches of
+        ``micro_batch`` in loader order, each described and added into its
+        tracklets' sums. A micro-batch is copied once, into the next of two
+        staging slots (``_staging``); on a card the host then fills the
+        other slot while the card describes this one. It waits for the
+        card before refilling a slot whose upload has not run yet, and
+        otherwise only where the card's queue of launched work is full."""
         mb = self.micro_batch
         buf = None
         counts = np.zeros(n_items, np.float32)
-        pend_clips, pend_ids, pending = [], [], 0
+        pend, pending = collections.deque(), 0  # [clips not yet staged, item]
+        slots, turn = None, 0
         item = 0
 
-        def flush(clips_np, ids_np):
-            nonlocal buf
+        def flush(n):
+            nonlocal buf, turn
+            slot = slots[turn]
+            turn = 1 - turn
+            if slot.uploaded is not None and not slot.uploaded.query():
+                with span("evaluator.stage_wait"):
+                    slot.uploaded.synchronize()
+            with span("evaluator.pack"):
+                row = 0
+                while row < n:
+                    clips, owner = pend[0]
+                    k = min(clips.shape[0], n - row)
+                    slot.clips[row : row + k].copy_(clips[:k])
+                    slot.ids[row : row + k] = owner
+                    if k == clips.shape[0]:
+                        pend.popleft()
+                    else:
+                        pend[0][0] = clips[k:]
+                    row += k
             with span("evaluator.upload"):
-                chunk = self._to_device(clips_np)
+                chunk, ids = slot.device_clips[:n], slot.device_ids[:n]
+                if slot.uploaded is not None:
+                    chunk.copy_(slot.clips[:n], non_blocking=True)
+                    ids.copy_(slot.ids[:n], non_blocking=True)
+                    slot.uploaded.record()
             with span("evaluator.describe"):
                 d = self._describe(chunk)
             with span("evaluator.accumulate"):
                 if buf is None:
                     buf = torch.zeros((n_items, d.shape[1]), dtype=d.dtype, device=self.device)
-                buf.index_add_(0, torch.from_numpy(ids_np).to(self.device), d)
+                buf.index_add_(0, ids, d)
 
         it = iter(loader)
         while True:
@@ -271,26 +349,20 @@ class Evaluator:
             if batch is None:
                 break
             clips, pid, camid = batch
-            n_clips = clips.shape[0]
-            counts[item] = n_clips
-            pend_clips.append(clips)
-            pend_ids.append(np.full(n_clips, item, np.int64))
-            pending += n_clips
+            clips = torch.from_numpy(np.ascontiguousarray(clips))
+            if slots is None:
+                slots = self._staging(clips.shape[1:], clips.dtype)
+            counts[item] = clips.shape[0]
+            pend.append([clips, item])
+            pending += clips.shape[0]
             pids.extend(np.atleast_1d(pid).tolist())
             camids.extend(np.atleast_1d(camid).tolist())
             item += 1
             while pending >= mb:
-                with span("evaluator.pack"):
-                    clips_np = np.concatenate(pend_clips)
-                    ids_np = np.concatenate(pend_ids)
-                flush(clips_np[:mb], ids_np[:mb])
-                pend_clips, pend_ids = [clips_np[mb:]], [ids_np[mb:]]
+                flush(mb)
                 pending -= mb
         if pending:
-            with span("evaluator.pack"):
-                clips_np = np.concatenate(pend_clips)
-                ids_np = np.concatenate(pend_ids)
-            flush(clips_np, ids_np)
+            flush(pending)
         if item != n_items:
             raise RuntimeError(f"extracted {item} tracklets, expected {n_items}")
         with span("evaluator.pool"):

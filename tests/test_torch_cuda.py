@@ -625,3 +625,63 @@ def test_per_frame_baselines_on_card_match_cpu(gen, fp32_policy, name):
     cpu, card = _card_vs_cpu(model, clips)
     for a, b in zip(cpu, card):
         torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-3)
+
+
+def test_dense_evaluator_stages_through_reused_pinned_slots_with_no_pageable_upload(gen, fp32_policy):
+    """Seven micro-batches of 16 distinct full-width clips through the dense
+    path twice: the staging slots are pinned and the same buffers both
+    times; the features match a synchronous reference (each micro-batch of
+    the concatenated clips uploaded, described and summed, then waited for)
+    within fp32 atomic-add noise, so no slot is refilled before its upload
+    ran; under a profiler no pageable host-to-device copy runs between the
+    first and the last describe, the pinned ones do, and the host waits for
+    a slot at most once a micro-batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grl_tpu_torch import models as tm
+    from grl_tpu_torch.data import ClipDataset, ClipLoader
+    from grl_tpu_torch.engine import Evaluator
+    from grl_tpu_torch.utils import profiling
+
+    mb, seq_len, frame = 16, 8, (256, 128)
+    rng = np.random.RandomState(0)
+    clip_counts = (5, 17, 9, 30, 3, 11, 20, 12)  # 107 clips: six micro-batches and a short seventh
+    items = [(rng.randint(0, 256, (n * seq_len, *frame, 3), np.uint8), i, 0) for i, n in enumerate(clip_counts)]
+
+    def loader():
+        return ClipLoader(ClipDataset(items, seq_len, "dense", *frame), batch_size=1, workers=2)
+
+    torch.manual_seed(0)
+    cnn = tm.GRLModel(trunk=tm.ResNetTrunk())
+    ev = Evaluator(cnn, tm.Siamese(input_num=cnn.num_feat, output_num=512), micro_batch=mb, device="cuda")
+    got, _, _ = ev.extract_features(loader())
+    slots = ev._slots[1]
+    ptrs = [s.clips.data_ptr() for s in slots]
+    assert all(s.clips.is_pinned() and s.ids.is_pinned() for s in slots)
+
+    clips = np.concatenate([c for c, _, _ in loader()])
+    ids = np.repeat(np.arange(len(clip_counts)), clip_counts)
+    want = torch.zeros_like(got)
+    with torch.inference_mode():
+        for i in range(0, len(ids), mb):
+            d = ev._describe(torch.from_numpy(clips[i : i + mb]).cuda())
+            want.index_add_(0, torch.from_numpy(ids[i : i + mb]).cuda(), d)
+            torch.cuda.synchronize()
+        want /= torch.tensor(clip_counts, dtype=torch.float32, device="cuda")[:, None]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again, _, _ = ev.extract_features(loader())
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    profiling.clear()
+    assert [s.clips.data_ptr() for s in ev._slots[1]] == ptrs
+    torch.testing.assert_close(again, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    describes = [sp for sp in spans if sp.name == "evaluator.describe"]
+    assert len(describes) == 7
+    assert sum(sp.name == "evaluator.stage_wait" for sp in spans) <= len(describes)
+    lo, hi = min(sp.start_ns for sp in describes), max(sp.end_ns for sp in describes)
+    copies = [ev_.name() for ev_ in prof.profiler.kineto_results.events()
+              if "Memcpy HtoD" in ev_.name() and lo <= ev_.start_ns() <= hi]
+    assert copies and not [name for name in copies if "Pageable" in name], copies
