@@ -277,7 +277,7 @@ from grl_tpu_torch.data import jpeg
 from grl_tpu_torch.data.sampling import dense_indices
 from grl_tpu_torch.engine import (Evaluator, Trainer, grl_loss_fn, init_train_state,
                                   make_descriptor_fn, make_train_step, metrics, step_decay_lr)
-from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance, rerank_columns
+from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance, rerank_columns, rerank_inputs
 from grl_tpu_torch.engine import rerank as rerank_mod
 from grl_tpu_torch.engine.rerank import re_ranking, re_ranking_padded
 from grl_tpu_torch.nn import GlobalBatchNorm, convert_global_batchnorm
@@ -597,6 +597,17 @@ def all_precision_flags(on):
 
 def check_fp32_policy(what, flags):
     check(not any(flags.values()), f"{what} ran outside the precision policy: {flags}")
+
+
+@contextlib.contextmanager
+def one_program_max(n):
+    """Re-ranking's cut (``rerank.ONE_PROGRAM_MAX``) at ``n`` inside, as it
+    was after."""
+    saved, rerank_mod.ONE_PROGRAM_MAX = rerank_mod.ONE_PROGRAM_MAX, n
+    try:
+        yield
+    finally:
+        rerank_mod.ONE_PROGRAM_MAX = saved
 
 
 @contextlib.contextmanager
@@ -2026,10 +2037,10 @@ def staged_features(device, q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6144):
 
 def phase_rerank_staged(device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6144, force=False):
     """Re-ranking past the staged builder's cut (n = 19960 > 16384): the
-    staged builder as ``re_ranking`` picks it, the one-program builder
-    (``staged=False``) and the staged builder with the plain min-sum, on
+    staged builder as ``re_ranking`` picks it, the one-program builder (the
+    cut raised to n) and the staged builder with the plain min-sum, on
     random unit features; each one's seconds, launches and peak memory.
-    ``force`` passes ``staged=True`` (a rehearsal below the cut). Returns
+    ``force`` shrinks the cut to 0 (a rehearsal below it). Returns
     the launches, the staged builder's numbers, and its result (which
     ``phase_sharded`` holds the row-sharded builder to)."""
     cuda = torch.device(device).type == "cuda"
@@ -2038,12 +2049,13 @@ def phase_rerank_staged(device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6
     if not force:
         check(n > 16384, f"n = {n} does not reach the staged builder")
 
-    def run(**kw):
-        box = [cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)]
+    def run(cut=0 if force else rerank_mod.ONE_PROGRAM_MAX, **kw):
+        box = rerank_inputs(qf, gf)
         at_entry = memory_mark(device)
         zero_launches()
         t0 = time.perf_counter()
-        out = re_ranking(inputs_box=box, **({"staged": True} if force and "staged" not in kw else {}), **kw)
+        with one_program_max(cut):
+            out = re_ranking(inputs_box=box, **kw)
         sync(device)
         info = {"seconds": time.perf_counter() - t0, "launches": read_launches()["minplus"],
                 "at_entry_gib": at_entry / 2**30,
@@ -2052,7 +2064,7 @@ def phase_rerank_staged(device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6
 
     run()  # warm: the first call pays library set-up
     staged, staged_info = run()
-    one, one_info = run(staged=False)
+    one, one_info = run(cut=n)
     plain, plain_info = run(min_sum_fn=ops.minplus_plain)
     err_one = float((staged - one).abs().max())
     err_plain = float((staged - plain).abs().max())

@@ -50,8 +50,8 @@ import contextlib
 import functools
 import io
 import json
-import os
 import os.path as osp
+import threading
 from datetime import timedelta
 
 import numpy as np
@@ -61,18 +61,14 @@ import torch.distributed as dist
 from .. import parallel, resolve_device, set_precision
 from ..config import ExperimentConfig
 from ..data import get_data
-from ..engine import Evaluator, init_train_state
-from ..engine.evaluator import _euclidean, cosine_distance, make_descriptor_fn, rerank_columns
+from ..engine import Evaluator, init_train_state, rerank
+from ..engine.evaluator import _euclidean, cosine_distance, make_descriptor_fn, rerank_columns, rerank_inputs
 from ..engine.rerank import re_ranking, re_ranking_padded, top_k, warn_if_degenerate
 from ..utils import load_train_state
 from ..utils.profiling import span
 from .train import _synthetic_kwargs, build_models, eval_meta, ranks_to_launch, say_one_device
+from .transport import Transport
 
-# serve's rerank takes the one-program capacity-padded builder up to this
-# many total items (padded queries + capacity + enrollment block), the staged
-# memory-lean builder past it. grl_tpu's cut; module-level so tests can
-# shrink it to drive the staged route at toy n.
-_RERANK_ONEJIT_MAX = 16384
 _ADD_BLOCK = 256  # serve's enrollment granularity
 # torch.export.save writes a zip archive; jax.export blobs are flatbuffers
 _ZIP_MAGIC = b"PK\x03\x04"
@@ -127,14 +123,11 @@ def rank(args):
     g = np.load(args.gallery)
     qf = torch.from_numpy(np.asarray(q["features"], np.float32)).to(device)
     gf = torch.from_numpy(np.asarray(g["features"], np.float32)).to(device)
-    distmat = cosine_distance(qf, gf)
     if args.rerank:
         warn_if_degenerate(qf.shape[0] + gf.shape[0])
-        # boxed hand-over, as the Evaluator: the staged builder (above
-        # n = 16384) frees the three distance matrices after its first stage
-        box = [distmat, _euclidean(qf, qf), _euclidean(gf, gf)]
-        distmat = None
-        distmat = re_ranking(inputs_box=box)
+        distmat = re_ranking(inputs_box=rerank_inputs(qf, gf))
+    else:
+        distmat = cosine_distance(qf, gf)
     distmat = distmat.cpu().numpy()
     topk = min(args.topk, gf.shape[0])
     order = np.argsort(distmat, axis=1)[:, :topk]
@@ -226,8 +219,6 @@ class _GraphCall:
     _WARMUP = 3  # eager runs on a side stream before the capture (cuDNN, cuBLAS, the allocator)
 
     def __init__(self, program, meta, device):
-        import threading
-
         self.shape = (meta["batch"], meta["seq_len"], meta["height"], meta["width"], meta["channels"])
         self.replays = 0
         self._lock = threading.Lock()
@@ -377,8 +368,6 @@ class _DescribeCoalescer:
     """
 
     def __init__(self, call, batch):
-        import threading
-
         self._call, self._batch = call, batch
         self._q = []
         self._qlock = threading.Lock()
@@ -392,8 +381,6 @@ class _DescribeCoalescer:
 
     def describe(self, clips):
         """(n, S, H, W, C) uint8 -> (n, dim) float32 descriptors."""
-        import threading
-
         items = [
             {"clips": clips[i : i + self._batch],
              "done": threading.Event(), "out": None, "err": None}
@@ -527,11 +514,9 @@ def describe_with_export(args):
     return feats.shape
 
 
-def _open_index(args, meta, device):
-    """serve's gallery index on ``device``, or None without ``--gallery`` or
-    ``--capacity``: the features in a buffer of capacity + one enrollment
-    block of rows (zeros past the valid count), with the labels and the
-    re-ranked query width ``q_pad``."""
+def _open_index(args, meta, device, mesh=None):
+    """serve's ``_GalleryIndex`` on ``device`` (each rank of ``mesh`` holds
+    one), or None without ``--gallery`` or ``--capacity``."""
     if not (args.gallery or args.capacity):
         return None
     if args.topk < 1:
@@ -557,19 +542,175 @@ def _open_index(args, meta, device):
     else:  # enroll-from-scratch index
         feats = np.zeros((0, meta["dim"]), np.float32)
         labels = {k: np.zeros(0, np.int64) for k in ("pids", "camids")}
-    n0 = feats.shape[0]
-    capacity = max(args.capacity, n0)
-    # one spare enrollment block, so a fixed-width block never runs past
-    # the buffer
-    buf = torch.zeros((capacity + _ADD_BLOCK, meta["dim"]), dtype=torch.float32, device=device)
-    buf[:n0] = torch.from_numpy(np.asarray(feats, np.float32))
     if args.rerank_queries < 1:
         raise SystemExit("serve --rerank-queries must be >= 1")
     # the rerank geometry is fixed at startup: queries pad to a fixed
     # width, the index to its buffer
     q_pad = meta["batch"] * -(-args.rerank_queries // meta["batch"])
-    return {"n": n0, "capacity": capacity, "gf": buf, "pids": labels["pids"], "camids": labels["camids"],
-            "q_pad": q_pad}
+    # --devices above 1 re-ranks through the staged builder, row-sharded
+    # over the group when it has more than one rank (grl_tpu: a mesh
+    # forces the staged route)
+    return _GalleryIndex(feats, labels["pids"], labels["camids"], max(args.capacity, feats.shape[0]), q_pad,
+                         args.topk, device, staged=args.devices > 1, mesh=mesh)
+
+
+class _GalleryIndex:
+    """serve's gallery index on the device, and its ranking.
+
+    The features sit in a buffer of ``capacity`` + one enrollment block of
+    rows, zeros past the valid count ``n`` and masked out of every ranking;
+    the labels sit beside them. Re-ranking pads the queries to ``q_pad``
+    rows, and its route is fixed here: the group's row-sharded staged
+    builder under ``mesh`` (``_RerankGroup``); the staged builder with
+    ``valid`` when ``staged`` or past ``rerank.ONE_PROGRAM_MAX`` items; else
+    ``re_ranking_padded`` over a g×g matrix cached per valid count.
+
+    One lock serializes the index's reads, writes and device work; ``rank``
+    and ``rank_reranked`` span its wait and hold (``_held``)."""
+
+    def __init__(self, feats, pids, camids, capacity, q_pad, topk, device, staged=False, mesh=None):
+        self.device = device
+        self.n, self.capacity, self.q_pad = feats.shape[0], capacity, q_pad
+        self.k_max = min(topk, capacity)
+        self.pids, self.camids = pids, camids
+        # one spare enrollment block, so a fixed-width block never runs past
+        # the buffer
+        self.gf = torch.zeros((capacity + _ADD_BLOCK, feats.shape[1]), dtype=torch.float32, device=device)
+        self.gf[: self.n] = torch.from_numpy(np.asarray(feats, np.float32))
+        self.staged = staged or q_pad + self.gf.shape[0] > rerank.ONE_PROGRAM_MAX
+        self.group = _RerankGroup(mesh, self) if mesh is not None else None
+        self._gg, self._gg_n = None, None  # the padded route's cached g×g, and its valid count
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def _held(self):
+        """The lock, its wait spanned as ``serve.lock_wait``, its hold as ``serve.lock_held``."""
+        with span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with span("serve.lock_held"):
+                yield
+        finally:
+            self._lock.release()
+
+    def enroll(self, feats, pids, camids):
+        """Append descriptor rows and their labels; returns the new count."""
+        with self._lock:
+            n, n_add = self.n, feats.shape[0]
+            if n + n_add > self.capacity:
+                raise ValueError(
+                    f"index at {n}/{self.capacity}: adding {n_add} exceeds "
+                    "capacity — restart serve with a larger --capacity"
+                )
+            for i in range(0, n_add, _ADD_BLOCK):
+                block = feats[i : i + _ADD_BLOCK]
+                if block.shape[0] < _ADD_BLOCK:  # zero-pad: rows past the new
+                    block = np.concatenate(     # count stay masked out of rank
+                        [block, np.zeros((_ADD_BLOCK - block.shape[0], block.shape[1]), np.float32)]
+                    )
+                self.gf[n + i : n + i + _ADD_BLOCK] = torch.from_numpy(block).to(self.device)
+            self.n = n + n_add
+            self.pids = np.concatenate([self.pids, pids])
+            self.camids = np.concatenate([self.camids, camids])
+            return self.n
+
+    def save(self):
+        """A consistent ``(payload, n)`` snapshot of the valid rows."""
+        with self._lock:
+            return {"features": self.gf[: self.n].cpu().numpy(), "pids": self.pids, "camids": self.camids}, self.n
+
+    def rank(self, qf, topk):
+        """Plain retrieval of (n_q, dim) float32 query features: the rank
+        op's ``results``. Scores are cosine similarities (the rank
+        subcommand's negative-distance convention)."""
+        with self._held(), torch.inference_mode():
+            topk = self._clamp(topk)
+            scores, order = self._top_k(torch.from_numpy(qf).to(self.device) @ self.gf.T, self.n)
+            return {"results": self._results(scores, order, qf.shape[0], topk)}
+
+    def rank_reranked(self, qf, topk):
+        """k-reciprocal re-ranked retrieval (the `rank --rerank` math) of
+        (n_q, dim) float32 query features, padded to ``q_pad`` rows. Scores
+        are -distance on the blended Jaccard/original scale, ordinal only,
+        not comparable to plain rank similarities."""
+        with self._held(), torch.inference_mode():
+            topk = self._clamp(topk)
+            n, n_q = self.n, qf.shape[0]
+            if n_q + n < 21:  # k1 + 1: below this the padded top-k clamps
+                raise ValueError(  # diverge from the reference's math
+                    "rerank needs >= 21 total items (k1=20) — enroll more or "
+                    "rank without rerank"
+                )
+            if n_q > self.q_pad:
+                raise ValueError(
+                    f"rerank request has {n_q} queries but the daemon's "
+                    f"query width is {self.q_pad} — restart with "
+                    f"--rerank-queries {n_q} or use 'extract rank --rerank'"
+                )
+            padded = torch.zeros((self.q_pad, qf.shape[1]), dtype=torch.float32, device=self.device)
+            padded[:n_q] = torch.from_numpy(qf).to(self.device)
+            scores, order = self._top_k(-self._reranked(padded, n_q), n)
+            resp = {"reranked": True, "results": self._results(scores, order, n_q, topk)}
+            if n_q + n < 42:  # 2 * (k1 + 1), warn_if_degenerate's regime; the
+                # one-shot CLI warns on stderr, a daemon client sees only this
+                resp["warning"] = (
+                    f"re-ranking {n_q + n} items is degenerate below 42 "
+                    "(2*(k1+1)) — results may be worse than plain rank"
+                )
+            return resp
+
+    def warm_up(self, rows):
+        """Both rankings once, plain over ``rows`` queries and re-ranked, so
+        that library set-up and the min-plus kernel's build land before the
+        first request."""
+        with torch.inference_mode():
+            n1 = max(self.n, 1)
+            float(self._top_k(torch.zeros((rows, self.gf.shape[1]), device=self.device) @ self.gf.T, n1)[0][0, 0])
+            qf0 = torch.zeros((self.q_pad, self.gf.shape[1]), dtype=torch.float32, device=self.device)
+            float(self._top_k(-self._reranked(qf0, 1), n1)[0][0, 0])
+
+    def _clamp(self, topk):
+        """``topk`` cut to ``k_max`` and to the (non-zero) valid count."""
+        if self.n == 0:
+            raise ValueError("index is empty — enroll with add first")
+        return min(topk, self.k_max, self.n)
+
+    def _top_k(self, scores, n):
+        """The ``k_max`` highest ``scores`` of each row, the columns past the
+        valid count ``n`` masked to -inf (the zero rows' similarity 0 would
+        beat genuinely negative matches)."""
+        cols = torch.arange(scores.shape[1], device=self.device)[None, :]
+        return top_k(torch.where(cols < n, scores, -torch.inf), self.k_max)
+
+    def _results(self, scores, order, n_q, topk):
+        """The first ``topk`` matches of the first ``n_q`` rows, labelled."""
+        with span("serve.read"):
+            scores, order = scores[:n_q].cpu().numpy(), order[:n_q].cpu().numpy()
+        with span("serve.respond"):
+            return [{"query": r, "matches": [{"gallery": int(j), "pid": int(self.pids[j]),
+                                              "camid": int(self.camids[j]), "score": float(s)}
+                                             for j, s in zip(order[r, :topk], scores[r, :topk])]}
+                    for r in range(n_q)]
+
+    def _reranked(self, qf, n_q):
+        """(q_pad, dim) padded query features -> (q_pad, G) re-ranked
+        distances on this index's route; rows past n_q and columns past
+        ``n`` are garbage."""
+        n = self.n
+        if self.group is not None:
+            return self.group.rerank(qf, n_q)
+        if self.staged:
+            # g×g is not cached on this route: the staged builder frees the
+            # distance matrices after its first stage
+            with span("rerank.distances", device=self.device):
+                box = rerank_inputs(qf, self.gf)
+            return re_ranking(inputs_box=box, valid=(n_q, n))
+        with span("rerank.distances", device=self.device):
+            # the gallery-gallery matrix changes only on enrollment
+            if self._gg_n != n:
+                self._gg, self._gg_n = _euclidean(self.gf, self.gf), n
+            box = rerank_inputs(qf, self.gf, self._gg)
+        return re_ranking_padded(*box, n_q, n)
 
 
 class _RerankGroup:
@@ -585,7 +726,7 @@ class _RerankGroup:
     def __init__(self, mesh, index):
         self.mesh, self.index = mesh, index
         self.seq = 0
-        self.synced = index["n"]  # the index rows every rank holds
+        self.synced = index.n  # the index rows every rank holds
 
     def _key(self):
         return f"grl_tpu_torch:serve:{self.seq}"
@@ -609,21 +750,21 @@ class _RerankGroup:
 
     def rerank(self, qf, n_q):
         """Rank 0: one request's re-ranked (q_pad, G) distances."""
-        self._post({"op": "rerank", "nq": n_q, "n": self.index["n"], "synced": self.synced})
-        return self._run(qf, n_q, self.synced, self.index["n"])
+        self._post({"op": "rerank", "nq": n_q, "n": self.index.n, "synced": self.synced})
+        return self._run(qf, n_q, self.synced, self.index.n)
 
     def follow(self):
         """A peer: take part in requests until rank 0 stops; returns how many."""
         served = 0
         while (head := self.receive())["op"] == "rerank":
-            qf = torch.empty((self.index["q_pad"], self.index["gf"].shape[1]), device=self.index["gf"].device)
+            qf = torch.empty((self.index.q_pad, self.index.gf.shape[1]), device=self.index.gf.device)
             self._run(qf, head["nq"], head["synced"], head["n"])
-            self.index["n"] = head["n"]
+            self.index.n = head["n"]
             served += 1
         return served
 
     def _run(self, qf, n_q, synced, n):
-        gf = self.index["gf"]
+        gf = self.index.gf
         if n > synced:
             dist.broadcast(gf[synced:n], src=0)
         self.synced = n
@@ -648,14 +789,35 @@ def _serve_peer(args):
     mesh = parallel.current_mesh()
     with np.load(args.model, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
-    idx = _open_index(args, meta, mesh.device)
-    if idx is None:
+    index = _open_index(args, meta, mesh.device, mesh)
+    if index is None:
         return 0
     with torch.inference_mode():
-        served = _RerankGroup(mesh, idx).follow()
+        served = index.group.follow()
     print(f"serve rank {mesh.rank} of {mesh.size}: stopped by rank 0 after {served} re-ranked requests",
           file=sys.stderr)
     return served
+
+
+def _add_operands(req, meta, describe):
+    """An add request's rows and labels: its descriptors, or its raw clips
+    through ``describe``."""
+    src = _load_npz_any(req["features"] if "features" in req else req["clips"])
+    if "features" in req:
+        feats = np.asarray(src["features"], np.float32)
+        if feats.ndim != 2 or feats.shape[1] != meta["dim"]:
+            raise ValueError(f"add features shaped {feats.shape}, need (n, {meta['dim']})")
+    else:
+        clips = src["clips"]
+        _check_clips(clips, meta)
+        feats = describe(clips)
+    labels = {}
+    for k in ("pids", "camids"):
+        labels[k] = (np.asarray(src[k], np.int64) if k in src.files
+                     else np.full(feats.shape[0], -1, np.int64))
+        if labels[k].shape != (feats.shape[0],):
+            raise ValueError(f"{k} shaped {labels[k].shape}, need ({feats.shape[0]},)")
+    return feats, labels["pids"], labels["camids"]
 
 
 def serve(args, inp=None, out=None):
@@ -678,30 +840,20 @@ def serve(args, inp=None, out=None):
 
     npz operands are paths or inline ``{"npz_b64": ...}`` payloads;
     ``describe``/``save`` answer inline when ``out`` is omitted. ``rank``
-    takes raw ``clips`` or precomputed ``features``. Clip description runs
-    through a coalescer that packs concurrent requests into shared
-    dispatches; index reads and writes and the similarity and re-ranking
-    work serialize on one lock.
+    takes raw ``clips`` or precomputed ``features``.
 
-    The index lives on the device in a buffer of ``--capacity`` + 256 rows
-    (zeros past the valid count, masked out of every ranking); ``add``
-    enrolls rows in blocks of 256. A re-ranked rank pads the queries to
-    ``--rerank-queries`` (rounded up to the batch) and re-ranks against the
-    whole buffer with the valid counts: through ``re_ranking_padded`` up to
-    ``_RERANK_ONEJIT_MAX`` total items, through the staged builder with
-    ``valid`` above it; both end in the min-plus kernel on the card. With
-    ``--devices`` above 1 it always takes the staged route, row-sharded
-    over the group when the group has more than one rank
-    (``_RerankGroup``): this process is rank 0 and owns the transport,
-    describe, plain rank and enrollment; the other ranks
+    Three parts: the transport (``transport.Transport``), the index
+    (``_GalleryIndex``: its device rows, its lock and its re-ranking route)
+    and, here, ``handle``, the ops. Clips are described outside the index
+    lock, through a coalescer that packs concurrent requests into shared
+    dispatches. Under ``--devices`` this process is rank 0 and owns the
+    transport, describe, plain rank and enrollment; the other ranks
     (``_serve_peer``) hold the same index and take their share of each
-    re-ranked request.
+    re-ranked request (``_RerankGroup``).
 
     A malformed request gets ``{"ok": false, "error": ...}`` and the loop
-    goes on; request lines are capped at ``--max-request-mb`` (an oversize
-    line is drained in 1 MiB chunks and answered with an error); every
-    response carries ``ms``. SIGTERM/SIGINT finish the in-flight request,
-    close the socket, unlink a unix socket file and return.
+    goes on; every response carries ``ms``. SIGTERM/SIGINT finish the
+    in-flight request and stop the daemon cleanly.
 
     While a ``torch.profiler`` session is active in the daemon's process
     (an operator profiling it), a ``rank`` response also carries
@@ -714,10 +866,7 @@ def serve(args, inp=None, out=None):
     them in its own process (``utils.profiling.record``). Without a
     profiler no response carries them.
     """
-    import signal
-    import socket as socklib
     import sys
-    import threading
     import time
 
     inp = inp if inp is not None else sys.stdin
@@ -728,7 +877,7 @@ def serve(args, inp=None, out=None):
         if n > 1:
             # this process is rank 0 (stdin, the socket, signals); the peers
             # start beside it
-            return parallel.launch(_serve_peer, args, n, args.device, here=lambda: serve(args, inp, out))[0]
+            return parallel.launch(_serve_peer, args, n, args.device, here=functools.partial(serve, args, inp, out))[0]
         print(f"--devices {args.devices}: running on one {args.device} device "
               f"({parallel.visible_devices(args.device)} visible); re-ranking on the staged route",
               file=sys.stderr)
@@ -740,158 +889,13 @@ def serve(args, inp=None, out=None):
     # every clip-describe site (describe/add/rank) funnels through the
     # coalescer: concurrent connections' clips share device dispatches
     coalescer = _DescribeCoalescer(call, meta["batch"])
-    idx = _open_index(args, meta, device)
-    rerank_unavailable, q_pad = "rank needs serve --gallery or --capacity", 0
-    rr_staged, group = False, None
-    k_max = 0
-    if idx is not None:
-        k_max = min(args.topk, idx["capacity"])  # capacity >= 1 here
-        q_pad = idx["q_pad"]
-        rerank_unavailable = None
-        # --devices above 1 re-ranks through the staged builder, row-sharded
-        # over the group when it has more than one rank (grl_tpu: a mesh
-        # forces the staged route)
-        rr_staged = args.devices > 1 or q_pad + idx["gf"].shape[0] > _RERANK_ONEJIT_MAX
-        if mesh is not None:
-            group = _RerankGroup(mesh, idx)
-
-    def rank_topk_feats(qf, n_valid):
-        # scores: cosine similarity (the rank subcommand's negative-distance
-        # convention); rows past the valid count are masked to -inf (the
-        # zero rows' similarity 0 would beat genuinely negative matches)
-        sim = qf @ idx["gf"].T
-        cols = torch.arange(sim.shape[1], device=device)[None, :]
-        return top_k(torch.where(cols < n_valid, sim, -torch.inf), k_max)
-
-    def rerank_topk(dist, n_valid):
-        # top-k of the re-ranked distances with the padding columns masked
-        # out; scores are -distance (ordinal only, like `rank --rerank`)
-        cols = torch.arange(dist.shape[1], device=device)[None, :]
-        return top_k(torch.where(cols < n_valid, -dist, -torch.inf), k_max)
-
-    def enroll(feats, pids, camids):
-        """Append descriptor rows to the device-resident index."""
-        n, n_add = idx["n"], feats.shape[0]
-        if n + n_add > idx["capacity"]:
-            raise ValueError(
-                f"index at {n}/{idx['capacity']}: adding {n_add} exceeds "
-                "capacity — restart serve with a larger --capacity"
-            )
-        for i in range(0, n_add, _ADD_BLOCK):
-            block = feats[i : i + _ADD_BLOCK]
-            if block.shape[0] < _ADD_BLOCK:  # zero-pad: rows past the new
-                block = np.concatenate(     # count stay masked out of rank
-                    [block, np.zeros((_ADD_BLOCK - block.shape[0], block.shape[1]), np.float32)]
-                )
-            idx["gf"][n + i : n + i + _ADD_BLOCK] = torch.from_numpy(block).to(device)
-        idx["n"] = n + n_add
-        idx["pids"] = np.concatenate([idx["pids"], pids])
-        idx["camids"] = np.concatenate([idx["camids"], camids])
-
-    def load_add_features(req):
-        """An add request carries either descriptors or raw clips."""
-        src = _load_npz_any(req["features"] if "features" in req else req["clips"])
-        if "features" in req:
-            feats = np.asarray(src["features"], np.float32)
-            if feats.ndim != 2 or feats.shape[1] != meta["dim"]:
-                raise ValueError(f"add features shaped {feats.shape}, need (n, {meta['dim']})")
-        else:
-            clips = src["clips"]
-            _check_clips(clips, meta)
-            feats = coalescer.describe(clips)
-        labels = {}
-        for k in ("pids", "camids"):
-            labels[k] = (np.asarray(src[k], np.int64) if k in src.files
-                         else np.full(feats.shape[0], -1, np.int64))
-            if labels[k].shape != (feats.shape[0],):
-                raise ValueError(f"{k} shaped {labels[k].shape}, need ({feats.shape[0]},)")
-        return feats, labels["pids"], labels["camids"]
-
-    def matches_of(order_row, scores_row, topk):
-        return [
-            {"gallery": int(j), "pid": int(idx["pids"][j]),
-             "camid": int(idx["camids"][j]), "score": float(s)}
-            for j, s in zip(order_row[:topk], scores_row[:topk])
-        ]
-
-    def rerank_dist(qf, n_q):
-        """(q_pad, dim) padded query features -> (q_pad, G) re-ranked
-        distances; rows past n_q and columns past idx["n"] are garbage.
-        The one-program padded builder below _RERANK_ONEJIT_MAX total items,
-        the staged builder (same padding convention) above it."""
-        n = idx["n"]
-        if group is not None:
-            return group.rerank(qf, n_q)
-        if rr_staged:
-            # gg is not cached on this route: the staged builder frees the
-            # distance matrices after its first stage
-            with span("rerank.distances", device=device):
-                box = [cosine_distance(qf, idx["gf"]), _euclidean(qf, qf),
-                       _euclidean(idx["gf"], idx["gf"])]
-            return re_ranking(inputs_box=box, valid=(n_q, n))
-        with span("rerank.distances", device=device):
-            # the gallery-gallery matrix changes only on enrollment: cached
-            # per valid count
-            if idx.get("gg_n") != n:
-                idx["gg"] = _euclidean(idx["gf"], idx["gf"])
-                idx["gg_n"] = n
-            qg, qq = cosine_distance(qf, idx["gf"]), _euclidean(qf, qf)
-        return re_ranking_padded(qg, qq, idx["gg"], n_q, n)
-
-    def rank_reranked(feats, topk):
-        """k-reciprocal re-ranked retrieval (the `rank --rerank` math)
-        against the resident index, queries padded to the fixed width.
-        Scores are -distance on the blended Jaccard/original scale, ordinal
-        only, not comparable to plain rank similarities."""
-        n = idx["n"]
-        n_q = feats.shape[0]
-        if n_q + n < 21:  # k1 + 1: below this the padded top-k clamps
-            raise ValueError(  # diverge from the reference's math
-                "rerank needs >= 21 total items (k1=20) — enroll more or "
-                "rank without rerank"
-            )
-        if n_q > q_pad:
-            raise ValueError(
-                f"rerank request has {n_q} queries but the daemon's "
-                f"query width is {q_pad} — restart with "
-                f"--rerank-queries {n_q} or use 'extract rank --rerank'"
-            )
-        qf = torch.zeros((q_pad, feats.shape[1]), dtype=torch.float32, device=device)
-        qf[:n_q] = torch.from_numpy(feats).to(device)
-        scores, order = rerank_topk(rerank_dist(qf, n_q), n)
-        with span("serve.read"):
-            scores = scores[:n_q].cpu().numpy()
-            order = order[:n_q].cpu().numpy()
-        with span("serve.respond"):
-            resp = {
-                "ok": True, "op": "rank", "reranked": True,
-                "results": [
-                    {"query": r, "matches": matches_of(order[r], scores[r], topk)}
-                    for r in range(n_q)
-                ],
-            }
-        if n_q + n < 42:  # 2 * (k1 + 1), warn_if_degenerate's regime; the
-            # one-shot CLI warns on stderr, a daemon client sees only this
-            resp["warning"] = (
-                f"re-ranking {n_q + n} items is degenerate below 42 "
-                "(2*(k1+1)) — results may be worse than plain rank"
-            )
-        return resp
-
-    @contextlib.contextmanager
-    def index_lock():
-        """The index lock (``lifecycle["handle"]``), its wait and its hold
-        spanned as ``serve.lock_wait`` and ``serve.lock_held``."""
-        with span("serve.lock_wait"):
-            lifecycle["handle"].acquire()
-        try:
-            with span("serve.lock_held"):
-                yield
-        finally:
-            lifecycle["handle"].release()
+    index = _open_index(args, meta, device, mesh)
+    transport = Transport(getattr(args, "listen", ""), getattr(args, "max_request_mb", 256.0))
 
     def handle(req):
         op = req.get("op")
+        if op in ("add", "save", "rank") and index is None:
+            raise ValueError(f"{op} needs serve --gallery or --capacity")
         if op == "ping":
             return {
                 "ok": True, "op": "ping", "dim": meta["dim"],
@@ -901,30 +905,19 @@ def serve(args, inp=None, out=None):
                 "seq_len": meta["seq_len"], "height": meta["height"],
                 "width": meta["width"], "channels": meta["channels"],
                 "platform": device.type,
-                "gallery": idx["n"] if idx is not None else 0,
-                "capacity": idx["capacity"] if idx is not None else 0,
-                "rerank": bool(idx is not None and not rerank_unavailable),
-                "rerank_queries": q_pad if (idx is not None and not rerank_unavailable) else 0,
+                "gallery": index.n if index is not None else 0,
+                "capacity": index.capacity if index is not None else 0,
+                "rerank": index is not None,
+                "rerank_queries": index.q_pad if index is not None else 0,
                 # which builder answers rerank requests
-                "rerank_staged": bool(idx is not None and rr_staged),
+                "rerank_staged": index is not None and index.staged,
                 # ranks the n² re-ranking is row-sharded over
-                "rerank_devices": mesh.size if idx is not None and mesh is not None else 1,
+                "rerank_devices": mesh.size if index is not None and mesh is not None else 1,
             }
         if op == "stats":
-            # per-op counters + latency aggregates (request wall time incl.
-            # the device-serialization wait)
-            with lifecycle["lock"]:
-                ops = {
-                    name: {"n": s["n"], "errors": s["errors"],
-                           "ms_mean": round(s["ms_total"] / s["n"], 2),
-                           "ms_max": s["ms_max"]}
-                    for name, s in stats.items()
-                }
-            resp = {"ok": True, "op": "stats", "ops": ops,
-                    "uptime_s": round(time.time() - lifecycle["t0"], 1),
-                    "gallery": idx["n"] if idx is not None else 0}
-            resp["describe_batching"] = coalescer.snapshot()
-            return resp
+            return {"ok": True, "op": "stats", **transport.stats(),
+                    "gallery": index.n if index is not None else 0,
+                    "describe_batching": coalescer.snapshot()}
         if op == "shutdown":
             return {"ok": True, "op": "shutdown"}
         if op == "describe":
@@ -941,31 +934,19 @@ def serve(args, inp=None, out=None):
                 resp["npz_b64"] = _npz_b64(payload)
             return resp
         if op == "add":
-            if idx is None:
-                raise ValueError("add needs serve --gallery or --capacity")
             if not ("features" in req or "clips" in req):
                 raise ValueError("add needs a 'features' or 'clips' npz path")
-            feats, pids, camids = load_add_features(req)  # describe: no lock
-            with lifecycle["handle"]:
-                enroll(feats, pids, camids)
-                return {"ok": True, "op": "add", "added": int(feats.shape[0]),
-                        "gallery": idx["n"], "capacity": idx["capacity"]}
+            feats, pids, camids = _add_operands(req, meta, coalescer.describe)  # describe: no lock
+            n = index.enroll(feats, pids, camids)
+            return {"ok": True, "op": "add", "added": int(feats.shape[0]),
+                    "gallery": n, "capacity": index.capacity}
         if op == "save":
-            if idx is None:
-                raise ValueError("save needs serve --gallery or --capacity")
-            with lifecycle["handle"]:  # consistent (gf, n, labels) snapshot
-                payload = {"features": idx["gf"][: idx["n"]].cpu().numpy(),
-                           "pids": idx["pids"], "camids": idx["camids"]}
-                n = idx["n"]
+            payload, n = index.save()
             if req.get("out"):
                 np.savez(req["out"], **payload)
                 return {"ok": True, "op": "save", "n": n, "out": req["out"]}
             return {"ok": True, "op": "save", "n": n, "npz_b64": _npz_b64(payload)}
         if op == "rank":
-            if idx is None:
-                raise ValueError("rank needs serve --gallery or --capacity")
-            if req.get("rerank") and rerank_unavailable:
-                raise ValueError(rerank_unavailable)  # config error first
             if ("features" in req) == ("clips" in req):
                 raise ValueError(
                     "rank takes exactly one of 'clips' (raw frames) / "
@@ -973,7 +954,7 @@ def serve(args, inp=None, out=None):
             topk = int(req.get("topk", args.topk))
             if topk < 1:
                 raise ValueError("topk must be >= 1")
-            if idx["n"] == 0:  # early + cheap; re-checked under the lock
+            if index.n == 0:  # early + cheap; re-checked under the lock
                 raise ValueError("index is empty — enroll with add first")
             if "features" in req:
                 # precomputed descriptors: the CNN pass is skipped
@@ -992,19 +973,8 @@ def serve(args, inp=None, out=None):
                 # raw clips describe outside the index lock, through the
                 # coalescer
                 qf = coalescer.describe(clips)
-            with index_lock(), torch.inference_mode():
-                if idx["n"] == 0:
-                    raise ValueError("index is empty — enroll with add first")
-                topk = min(topk, k_max, idx["n"])
-                if req.get("rerank"):
-                    return rank_reranked(qf, topk)
-                scores, order = rank_topk_feats(torch.from_numpy(qf).to(device), idx["n"])
-                with span("serve.read"):
-                    scores, order = scores.cpu().numpy(), order.cpu().numpy()
-                with span("serve.respond"):
-                    results = [{"query": r, "matches": matches_of(order[r], scores[r], topk)}
-                               for r in range(qf.shape[0])]
-                return {"ok": True, "op": "rank", "results": results}
+            ranked = index.rank_reranked(qf, topk) if req.get("rerank") else index.rank(qf, topk)
+            return {"ok": True, "op": "rank", **ranked}
         raise ValueError(f"unknown op {op!r}")
 
     if getattr(args, "warmup", False):
@@ -1015,277 +985,21 @@ def serve(args, inp=None, out=None):
         dummy = np.zeros((meta["batch"], meta["seq_len"], meta["height"],
                           meta["width"], meta["channels"]), np.uint8)
         float(call(dummy)[0, 0])  # descriptor program
-        if idx is not None:
-            with torch.inference_mode():
-                n1 = max(idx["n"], 1)
-                float(rank_topk_feats(torch.zeros((meta["batch"], meta["dim"]), device=device), n1)[0][0, 0])
-                if not rerank_unavailable:
-                    qf0 = torch.zeros((q_pad, meta["dim"]), dtype=torch.float32, device=device)
-                    float(rerank_topk(rerank_dist(qf0, 1), n1)[0][0, 0])
+        if index is not None:
+            index.warm_up(meta["batch"])
         print(f"warmup done in {time.time() - t0:.1f}s", file=sys.stderr)
 
     print(
         f"serving {args.model} on {device} (batch {meta['batch']}, dim {meta['dim']}"
-        + (f", gallery {idx['n']}/{idx['capacity']}" if idx is not None else "")
+        + (f", gallery {index.n}/{index.capacity}" if index is not None else "")
         + ") — one JSON request per line",
         file=sys.stderr,
     )
-
-    # graceful shutdown state, shared by the signal handler, the shutdown
-    # op, and every connection thread. A signal handler may only be
-    # installed from the main thread (in-process callers may drive serve()
-    # from worker threads; there the shutdown op / EOF path still applies).
-    lifecycle = {
-        "stop": False,
-        "srv": None,
-        "conns": set(),
-        "lock": threading.Lock(),     # conns set + stats aggregates
-        "handle": threading.Lock(),   # serializes device work across clients
-        "t0": time.time(),
-    }
-    stats = {}
-
-    def _stop_everything(why):
-        # Finish in-flight requests, then exit cleanly. Blocked syscalls
-        # must FAIL rather than be retried (PEP 475 retries after a signal
-        # handler returns): full shutdown on the listening socket aborts
-        # accept(); read-side shutdown on live connections turns their
-        # blocked readline into EOF while each response side still flushes.
-        lifecycle["stop"] = True
-        print(f"{why}: shutting down", file=sys.stderr)
-        if lifecycle["srv"] is not None:
-            try:
-                lifecycle["srv"].shutdown(socklib.SHUT_RDWR)
-            except OSError:
-                pass
-        with lifecycle["lock"]:
-            live = list(lifecycle["conns"])
-        for conn in live:
-            try:
-                conn.shutdown(socklib.SHUT_RD)
-            except OSError:
-                pass
-
-    # Self-pipe teardown: the handler may interrupt a holder of any
-    # non-reentrant lock on the main thread, so it takes no lock, starts no
-    # thread and prints nothing. It sets the stop flag and pokes a pipe
-    # (os.write is async-signal-safe); a pre-spawned waiter thread blocked
-    # in os.read runs the socket teardown.
-    _sig_r, _sig_w = os.pipe()
-
-    def _signal_waiter():
-        data = os.read(_sig_r, 1)
-        if data:  # empty read = pipe closed on the no-signal exit path
-            _stop_everything(f"caught signal {int(data[0])}")
-
-    def _graceful(signum, _frame):
-        lifecycle["stop"] = True
-        try:
-            os.write(_sig_w, bytes([signum]))
-        except OSError:
-            pass  # pipe already closed during shutdown
-
-    prev_handlers, waiter = {}, None
     try:
-        for sig in (signal.SIGTERM, signal.SIGINT):
-            prev_handlers[sig] = signal.signal(sig, _graceful)
-        waiter = threading.Thread(target=_signal_waiter, daemon=True)
-        waiter.start()
-    except ValueError:  # not the main thread
-        prev_handlers = {}
-
-    # request lines are read with a hard size cap: inline operands ride
-    # base64-npz on the line, so an unbounded readline would let one client
-    # balloon host memory before json.loads runs
-    max_request_mb = getattr(args, "max_request_mb", 256.0)
-    max_line_chars = int(max_request_mb * (1 << 20))
-
-    def _read_bounded_line(fin):
-        """readline with a cap; returns (line, oversize?)."""
-        line = fin.readline(max_line_chars + 1)
-        if len(line) <= max_line_chars or line.endswith("\n"):
-            return line, False
-        while True:  # discard the rest of the oversize line, 1 MiB at a time
-            chunk = fin.readline(1 << 20)
-            if not chunk or chunk.endswith("\n"):
-                return "", True
-
-    def serve_lines(fin, fout):
-        """One JSON-lines conversation; returns (#served, shutdown?)."""
-        served = 0
-        while True:
-            line, oversize = _read_bounded_line(fin)
-            if oversize:
-                resp = {
-                    "ok": False,
-                    "error": f"request line exceeds --max-request-mb "
-                             f"({max_request_mb:g} MB); send large "
-                             f"operands as file paths instead of inline "
-                             f"npz_b64, or raise the cap",
-                    "ms": 0.0,
-                }
-                with lifecycle["lock"]:
-                    s = stats.setdefault("oversize", {"n": 0, "errors": 0,
-                                                      "ms_total": 0.0, "ms_max": 0.0})
-                    s["n"] += 1
-                    s["errors"] += 1
-                fout.write(json.dumps(resp) + "\n")
-                fout.flush()  # OSError here = client vanished; conversation logs it
-                continue
-            if not line:  # EOF
-                break
-            line = line.strip()
-            if not line:
-                continue
-            t0 = time.perf_counter()
-            req = None
-            with contextlib.ExitStack() as scope:
-                request = None
-                try:
-                    req = json.loads(line)
-                    if isinstance(req, dict) and req.get("op") == "rank":
-                        request = scope.enter_context(span("serve.request"))
-                    resp = handle(req)
-                except Exception as e:  # noqa: BLE001 — per-request isolation
-                    resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
-                    if isinstance(req, dict):  # attribute the error to its op
-                        resp["op"] = req.get("op")
-                resp["ms"] = round((time.perf_counter() - t0) * 1e3, 2)
-                done = request.descendants() if request is not None else None
-                if done:  # a traced request's spans so far (not its own)
-                    resp["spans"] = [list(sp) for sp in done]
-                with lifecycle["lock"]:
-                    s = stats.setdefault(resp.get("op") or "invalid",
-                                         {"n": 0, "errors": 0, "ms_total": 0.0, "ms_max": 0.0})
-                    s["n"] += 1
-                    s["errors"] += 0 if resp.get("ok") else 1
-                    s["ms_total"] += resp["ms"]
-                    s["ms_max"] = max(s["ms_max"], resp["ms"])
-                # decide BEFORE the reply write: a client that disconnects
-                # without reading its shutdown response must still stop the daemon
-                stopping = (
-                    (resp.get("op") == "shutdown" and resp.get("ok"))
-                    or lifecycle["stop"]
-                )
-                try:
-                    fout.write(json.dumps(resp) + "\n")
-                    fout.flush()
-                    served += 1
-                except OSError:
-                    if not stopping:
-                        raise  # client vanished mid-reply; conversation logs it
-            if stopping:
-                return served, True
-        return served, False
-
-    def serve_transport():
-        if not getattr(args, "listen", ""):
-            n, _ = serve_lines(inp, out)
-            return n
-
-        # socket mode: clients connect and disconnect freely;
-        # {"op": "shutdown"} from any client stops the daemon. TCP binds are
-        # for trusted networks (no auth); unix:PATH scopes by file permissions.
-        if args.listen.startswith("unix:"):
-            path = args.listen[5:]
-            try:
-                os.unlink(path)
-            except OSError:
-                pass
-            srv = socklib.socket(socklib.AF_UNIX)
-            srv.bind(path)
-            bound = args.listen
-        else:
-            host, _, port = args.listen.rpartition(":")
-            srv = socklib.socket(socklib.AF_INET)
-            srv.setsockopt(socklib.SOL_SOCKET, socklib.SO_REUSEADDR, 1)
-            srv.bind((host or "127.0.0.1", int(port)))
-            bound = "%s:%d" % srv.getsockname()[:2]  # resolves port 0
-        srv.listen(16)
-        # accept() wakes every half second to read the stop flag: shutting a
-        # listening socket down does not wake a blocked accept() on every
-        # kernel (some refuse it with ENOTCONN)
-        srv.settimeout(0.5)
-        lifecycle["srv"] = srv
-        print(f"listening on {bound}", file=sys.stderr, flush=True)
-        n_req = [0]
-        threads = []
-
-        def conversation(conn):
-            # one thread per connected client: an idle client must not
-            # block other clients' requests
-            stopped = False
-            with conn:
-                try:
-                    served, stopped = serve_lines(
-                        conn.makefile("r", encoding="utf-8"),
-                        conn.makefile("w", encoding="utf-8"),
-                    )
-                    with lifecycle["lock"]:
-                        n_req[0] += served
-                except OSError as e:  # client vanished mid-reply
-                    print(f"client dropped: {e}", file=sys.stderr)
-                finally:
-                    with lifecycle["lock"]:
-                        lifecycle["conns"].discard(conn)
-            if stopped and not lifecycle["stop"]:
-                _stop_everything("shutdown op")  # from any client
-
-        try:
-            while not lifecycle["stop"]:
-                try:
-                    conn, _peer = srv.accept()
-                except socklib.timeout:
-                    continue
-                except OSError:
-                    if lifecycle["stop"]:  # _stop_everything aborted accept
-                        break
-                    raise
-                with lifecycle["lock"]:
-                    lifecycle["conns"].add(conn)
-                if lifecycle["stop"]:
-                    # raced _stop_everything's conns snapshot: deliver the
-                    # EOF it would have sent, or this reader blocks forever
-                    try:
-                        conn.shutdown(socklib.SHUT_RD)
-                    except OSError:
-                        pass
-                t = threading.Thread(target=conversation, args=(conn,), daemon=True)
-                t.start()
-                # reap finished conversations so a long-lived daemon's
-                # thread list does not grow with every connection
-                threads[:] = [x for x in threads if x.is_alive()]
-                threads.append(t)
-            for t in threads:  # in-flight requests finish; readers got EOF
-                t.join()
-        finally:
-            srv.close()
-            if args.listen.startswith("unix:"):
-                try:
-                    os.unlink(args.listen[5:])
-                except OSError:
-                    pass
-        return n_req[0]
-
-    try:
-        return serve_transport()
+        return transport.run(handle, inp, out)
     finally:
-        if group is not None:
-            group.stop()
-        for sig, handler in prev_handlers.items():
-            signal.signal(sig, handler)
-        # unblock the signal waiter (os.read returns b"" on writer close) and
-        # wait for it: a signal that lands while the accept loop is between
-        # two accept() calls stops the loop through the flag alone, and the
-        # waiter must still run its teardown and log before the process ends
-        try:
-            os.close(_sig_w)
-        except OSError:
-            pass
-        if waiter is not None:
-            waiter.join(timeout=10)
-        if waiter is None or not waiter.is_alive():
-            os.close(_sig_r)
+        if index is not None and index.group is not None:
+            index.group.stop()
 
 
 def build_parser():

@@ -79,6 +79,15 @@ def _euclidean(a, b):
     return sq.clamp(min=1e-12).sqrt()
 
 
+def rerank_inputs(qf, gf, g_g=None):
+    """Re-ranking's inputs as the box ``[q_g, q_q, g_g]`` for
+    ``re_ranking(inputs_box=)``, which empties it so that they free once
+    read (the staged builder relies on that); ``g_g`` passes a cached one.
+    The reference's mix (grl_tpu ``evaluator.py:361``): q_g is the COSINE
+    distance matrix while q_q and g_g are euclidean."""
+    return [cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf) if g_g is None else g_g]
+
+
 def rerank_columns(qf, gf, mesh):
     """This rank's share of re-ranking's input under ``mesh``: the columns
     ``parallel.row_block(q + g, mesh)`` of ``c = [[q_q, q_g], [q_gᵀ, g_g]]``
@@ -194,12 +203,7 @@ class Evaluator:
                                      mesh=mesh, **kw)
                 start, stop, _ = row_block(qf.shape[0], mesh)
                 return distmat, distmat[start:stop]
-            # the reference's inputs: q_g is the COSINE distance matrix while
-            # q_q and g_g are euclidean. Handed over in a box that re_ranking
-            # empties, so the three matrices free once its builder has read
-            # them (the staged builder, above n = 16384, relies on that)
-            distmat = re_ranking(inputs_box=[cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)],
-                                 **kw)
+            distmat = re_ranking(inputs_box=rerank_inputs(qf, gf), **kw)
             return distmat, distmat
         if mesh is None:
             distmat = cosine_distance(qf, gf)

@@ -16,8 +16,8 @@ Counterpart of ``grl_tpu/engine/rerank.py``. Definitions (n = #query +
 
 Four builders, as in grl_tpu:
 - ``re_ranking`` (``re_ranking_device``): the one-program path
-  (``v_from_original``) up to n = 16384, the staged memory-lean builder
-  (``_build_v_staged``) above it or when ``valid`` counts are given;
+  (``v_from_original``) up to ``ONE_PROGRAM_MAX`` = 16384 items, the staged
+  builder (``_build_v_staged``) above it or when ``valid`` counts are given;
 - ``re_ranking_padded`` (``re_ranking_device_padded``): one program over
   capacity-padded inputs, the serve daemon's route;
 - ``re_ranking_host`` (grl_tpu's host ``re_ranking``): numpy, a copy.
@@ -68,6 +68,10 @@ from ..utils.profiling import span
 # multi-slab and ragged-block paths at toy sizes.
 _MINPLUS_CHUNK = 8192
 _STAGE_BLOCK = 4096
+# the most items (queries + gallery) the one-program builder takes, grl_tpu's
+# cut; read at each use by ``re_ranking`` and the serve daemon's index, so a
+# test that shrinks it drives both onto the staged route at toy n
+ONE_PROGRAM_MAX = 16384
 
 
 def warn_if_degenerate(n_total, k1=20, k2=6):
@@ -181,16 +185,16 @@ def _jaccard_blend(min_sum, original_q, lambda_value):
 
 
 def re_ranking(q_g_dist=None, q_q_dist=None, g_g_dist=None, k1=20, k2=6, lambda_value=0.3,
-               min_sum_fn=minplus, staged=None, inputs_box=None, valid=None, mesh=None, query_num=None):
+               min_sum_fn=minplus, inputs_box=None, valid=None, mesh=None, query_num=None):
     """Re-ranked (q, g) distance matrix from the three distance matrices,
     computed on their device. ``min_sum_fn`` is the Jaccard min-sum: the
     min-plus kernel wrapper, or ``ops.minplus_plain`` to check it.
 
-    ``staged`` forces the staged builder on or off; None takes it above
-    n = 16384 items, as grl_tpu does. ``inputs_box``: a list ``[q_g, q_q,
-    g_g]`` passed instead of the three matrices and emptied on entry, so
-    that they free once the builder has read them (a caller passing them
-    positionally keeps them alive for the whole call). ``valid``: ``(nq,
+    The staged builder runs above ``ONE_PROGRAM_MAX`` items, as grl_tpu's
+    does. ``inputs_box``: a list ``[q_g, q_q, g_g]`` passed instead of the
+    three matrices and emptied on entry, so that they free once the builder
+    has read them (a caller passing them positionally keeps them alive for
+    the whole call). ``valid``: ``(nq,
     ng)`` valid counts of capacity-padded inputs (the serve daemon's index
     past the padded builder's scale); forces the staged builder, whose
     first stage then masks the padding. Output rows past nq and columns
@@ -211,11 +215,8 @@ def re_ranking(q_g_dist=None, q_q_dist=None, g_g_dist=None, k1=20, k2=6, lambda_
     query_num = q_g_dist.shape[0]
     gallery_num = g_g_dist.shape[0]
     n_total = query_num + gallery_num
-    if valid is not None:
-        staged = True  # the masked first stage exists only in the staged builder
-    if staged is None:
-        staged = n_total > 16384
-    if staged:
+    # the masked first stage under ``valid`` exists only in the staged builder
+    if valid is not None or n_total > ONE_PROGRAM_MAX:
         box = [q_g_dist, q_q_dist, g_g_dist]
         q_g_dist = q_q_dist = g_g_dist = None
         # above one slab, query expansion (s5) is deferred into the min-plus

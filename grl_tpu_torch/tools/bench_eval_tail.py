@@ -55,7 +55,7 @@ def tail(opts):
     alone); returns its numbers."""
     from .. import parallel, resolve_device, set_precision
     from ..engine import metrics
-    from ..engine.evaluator import _euclidean, cosine_distance, rerank_columns
+    from ..engine.evaluator import cosine_distance, rerank_columns, rerank_inputs
     from ..engine.rerank import re_ranking
     from ..ops import minplus
 
@@ -101,7 +101,7 @@ def tail(opts):
         t0 = time.perf_counter()
         if opts["rerank"]:
             if mesh is None:
-                box = [cosine_distance(qf_t, gf_t), _euclidean(qf_t, qf_t), _euclidean(gf_t, gf_t)]
+                box = rerank_inputs(qf_t, gf_t)
             else:
                 box = [rerank_columns(qf_t, gf_t, mesh)]
             box = [m.to(device) for m in box]

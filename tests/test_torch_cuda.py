@@ -333,12 +333,13 @@ def test_staged_and_padded_builders_on_card_match_plain_min_sum(gen, monkeypatch
     qf, gf = feats[:30], feats
     dists = cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)
     before = minplus.launches
-    staged = rerank.re_ranking(*dists, staged=True)
+    monkeypatch.setattr(rerank, "ONE_PROGRAM_MAX", 179)  # the staged builder at n = 180
+    staged = rerank.re_ranking(*dists)
     torch.cuda.synchronize()
     assert minplus.launches == before + 3  # ceil(180 / 64) slabs
-    torch.testing.assert_close(staged, rerank.re_ranking(*dists, staged=True, min_sum_fn=minplus_plain),
-                               rtol=0, atol=TOL)
-    torch.testing.assert_close(staged, rerank.re_ranking(*dists, staged=False), rtol=0, atol=TOL)
+    torch.testing.assert_close(staged, rerank.re_ranking(*dists, min_sum_fn=minplus_plain), rtol=0, atol=TOL)
+    monkeypatch.setattr(rerank, "ONE_PROGRAM_MAX", 180)  # the one-program builder
+    torch.testing.assert_close(staged, rerank.re_ranking(*dists), rtol=0, atol=TOL)
 
     # the serve daemon's geometry: 30 of 32 query rows, 150 of 200 gallery
     # rows valid, garbage in the padding

@@ -395,14 +395,15 @@ def test_serve_every_op_with_error_isolation(art):
 
 
 def test_serve_staged_route_matches_padded_route(art, monkeypatch):
-    """Past ``_RERANK_ONEJIT_MAX`` the daemon re-ranks through the staged
-    builder with valid counts: the same answers as the padded route."""
+    """Past re-ranking's cut (``rerank.ONE_PROGRAM_MAX``, shrunk) the
+    daemon re-ranks through the staged builder with valid counts: the same
+    answers as the padded route."""
     argv = ["--model", art.port, "--gallery", art.path("gallery.npz"), "--capacity", "64", "--topk", "5",
             "--rerank-queries", "4", "--warmup"]
     reqs = [{"op": "ping"}, {"op": "add", "features": art.path("queries5.npz")},
             {"op": "rank", "features": art.path("queries.npz"), "rerank": True}]
     padded = port_serve(argv, reqs)
-    monkeypatch.setattr(T, "_RERANK_ONEJIT_MAX", 8)
+    monkeypatch.setattr(T.rerank, "ONE_PROGRAM_MAX", 8)
     staged = port_serve(argv, reqs)
     assert not padded[0]["rerank_staged"] and staged[0]["rerank_staged"]
     for a, b in zip(padded[2]["results"], staged[2]["results"]):

@@ -96,7 +96,7 @@ def test_serve_devices_2_equals_one_rank_and_grl_tpu(art, monkeypatch):
     reqs = REQUESTS(art)
     argv = ["--gallery", art.path("gallery.npz"), *ARGV]
     two = port_serve(["--model", art.port, *argv, "--devices", "2"], reqs)
-    monkeypatch.setattr(T, "_RERANK_ONEJIT_MAX", 8)  # one rank on the staged route
+    monkeypatch.setattr(T.rerank, "ONE_PROGRAM_MAX", 8)  # one rank on the staged route
     one = port_serve(["--model", art.port, *argv], reqs)
     out = io.StringIO()
     J.serve(J.build_parser().parse_args(["serve", "--model", art.jax, *argv, "--devices", "2"]),

@@ -186,7 +186,7 @@ EXPANSION_CASES = {
     "n_below_k1_plus_1": lambda mp: _lists(_synthetic_dists(4, 9), 20),
     "row_range_int32": lambda mp: _lists(_synthetic_dists(25, 90), 20, start=37, rows=50, dtype=torch.int32),
     "padded_route": _routed(lambda: R.re_ranking_padded(*_padded_inputs(), 20, 70)),
-    "masked_staged_route": _routed(lambda: R.re_ranking(*_padded_inputs(), staged=True, valid=(20, 70))),
+    "masked_staged_route": _routed(lambda: R.re_ranking(*_padded_inputs(), valid=(20, 70))),
 }
 
 

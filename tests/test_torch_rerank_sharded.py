@@ -93,6 +93,7 @@ def references():
     """Each case's one-process result (port) and grl_tpu's mesh forms."""
     out = {}
     saved = [(m, m._MINPLUS_CHUNK, m._STAGE_BLOCK) for m in (T, J)]
+    cut, T.ONE_PROGRAM_MAX = T.ONE_PROGRAM_MAX, 0  # the port's staged builder at every n
     try:
         for name, c, q, k1, k2, chunk, block, valid in CASES:
             for m in (T, J):
@@ -100,7 +101,7 @@ def references():
             J._STAGED_CACHE.clear()  # grl_tpu's stages close over the block width
             mats = _blocks(c, q)
             port = T.re_ranking(*(torch.from_numpy(np.ascontiguousarray(m)) for m in mats), k1=k1, k2=k2,
-                                staged=True, valid=valid).numpy()
+                                valid=valid).numpy()
             forms = [dict(staged=True, valid=valid)] + ([dict(staged=False)] if valid is None else [])
             jax = [np.asarray(J.re_ranking_device(*(jnp.asarray(m) for m in mats), k1=k1, k2=k2, interpret=True,
                                                   mesh=data_mesh(2), **kw)) for kw in forms]
@@ -108,6 +109,7 @@ def references():
     finally:
         for m, chunk, block in saved:
             m._MINPLUS_CHUNK, m._STAGE_BLOCK = chunk, block
+        T.ONE_PROGRAM_MAX = cut
         J._STAGED_CACHE.clear()
     return out
 
@@ -145,7 +147,7 @@ def test_sharded_builder_equals_one_process_and_grl_tpu(sharded, references, cas
             np.testing.assert_allclose(_valid_slice(got, valid), _valid_slice(want, valid), rtol=0, atol=JAX_TOL)
 
 
-def test_no_rank_holds_an_n_by_n_matrix(sharded):
+def test_no_rank_holds_an_n_by_n_matrix(sharded, monkeypatch):
     """No tensor that the sharded builder made on any rank spans n rows and
     n columns, and no matrix holds more elements than one rank's share of a
     stage buffer (per × n, rows padded to 16 bytes; the CPU's plain
@@ -162,8 +164,9 @@ def test_no_rank_holds_an_n_by_n_matrix(sharded):
             assert not [s for s in shapes if len(s) == 2 and s[0] >= n0 and s[1] >= n0], shapes
             assert max(int(np.prod(s)) for s in shapes if len(s) == 2) <= share
             assert r["rerank"][case]["box_emptied"]
+    monkeypatch.setattr(T, "ONE_PROGRAM_MAX", 0)  # the staged builder
     with W.ShapeSpy() as spy:
-        T.re_ranking(*(torch.from_numpy(np.ascontiguousarray(m)) for m in _blocks(CASES[0][1], 19)), staged=True)
+        T.re_ranking(*(torch.from_numpy(np.ascontiguousarray(m)) for m in _blocks(CASES[0][1], 19)))
     assert (107, 107) in spy.shapes
 
 

@@ -2,7 +2,8 @@
 grl_tpu's.
 
 The references are grl_tpu's ``re_ranking_device(staged=True | valid=...)``
-and ``re_ranking_device_padded`` with the Pallas min-plus kernel
+(the port's ``re_ranking`` with its cut ``ONE_PROGRAM_MAX`` shrunk, or
+``valid``) and ``re_ranking_device_padded`` with the Pallas min-plus kernel
 interpreted (as its own tests run them on the CPU), and its host numpy
 ``re_ranking``. Module constants that shrink the slabs and row blocks are
 set alike on both sides, as ``tests/test_metrics.py`` shrinks grl_tpu's.
@@ -61,28 +62,35 @@ def blocks(monkeypatch):
     J._STAGED_CACHE.clear()
 
 
+@pytest.fixture
+def staged(monkeypatch):
+    """The port's ``re_ranking`` on the staged builder at every n (its cut
+    shrunk to 0), as grl_tpu's ``staged=True``."""
+    monkeypatch.setattr(T, "ONE_PROGRAM_MAX", 0)
+
+
 @pytest.mark.parametrize("chunk", [8192, 16, 8])
 @pytest.mark.parametrize("k2", [1, 3])
-def test_staged_min_plus_slabs_match_grl_tpu(blocks, chunk, k2):
+def test_staged_min_plus_slabs_match_grl_tpu(blocks, staged, chunk, k2):
     """The deferred-slab loop: one slab (8192), slabs wider than the 10
     queries (16: the query rows come out of slab 0) and narrower (8: they
     are expanded on their own); k2 = 1 has no query expansion."""
     blocks(chunk=chunk)
     mats = _dists(10, 40, seed=3)
     want = _jax(J.re_ranking_device, mats, k1=5, k2=k2, staged=True)
-    got = _port(T.re_ranking, mats, k1=5, k2=k2, staged=True)
+    got = _port(T.re_ranking, mats, k1=5, k2=k2)
     assert got.shape == want.shape == (10, 40)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("nq,ng", [(23, 82), (8, 40)], ids=["n105_ragged", "g40_ragged"])
-def test_staged_row_blocks_match_grl_tpu(blocks, nq, ng):
+def test_staged_row_blocks_match_grl_tpu(blocks, staged, nq, ng):
     """16-row stage blocks at n = 105 and G = 40: ragged last blocks here,
     grl_tpu's overlapping tails there."""
     blocks(block=16)
     mats = _dists(nq, ng, seed=7)
     want = _jax(J.re_ranking_device, mats, staged=True)
-    np.testing.assert_allclose(_port(T.re_ranking, mats, staged=True), want, rtol=0, atol=TOL)
+    np.testing.assert_allclose(_port(T.re_ranking, mats), want, rtol=0, atol=TOL)
     # the staged V and the one-program V are the same matrix
     box = [torch.from_numpy(m) for m in mats]
     v, original_q, _ = T._build_v_staged(box)
@@ -147,15 +155,16 @@ def test_host_form_is_grl_tpu_host_bit_for_bit(layout):
 
 
 @pytest.mark.parametrize("builder", ["staged", "padded", "staged_masked"])
-def test_lattice_ties_match_grl_tpu_device_path(blocks, builder):
+def test_lattice_ties_match_grl_tpu_device_path(blocks, monkeypatch, builder):
     """The lattice layout (most rows tie across the k1 + 1, ⌊k1/2⌋ + 1 and
     k2 boundaries) through the staged and padded builders: ties go to the
     lower index, as ``lax.top_k``'s do."""
     blocks(chunk=64, block=48)
     mats = _duplicated_layout()[:3]
     if builder == "staged":
+        monkeypatch.setattr(T, "ONE_PROGRAM_MAX", 0)
         want = _jax(J.re_ranking_device, mats, staged=True)
-        got = _port(T.re_ranking, mats, staged=True)
+        got = _port(T.re_ranking, mats)
     else:
         # pads at the end of each axis: the valid items keep their indices
         q, g = mats[0].shape
@@ -171,8 +180,9 @@ def test_lattice_ties_match_grl_tpu_device_path(blocks, builder):
 
 
 def test_builder_choice_and_box_hand_over(monkeypatch):
-    """``staged=None`` takes the one-program path at n ≤ 16384, ``valid``
-    forces the staged builder, and ``inputs_box`` is emptied on entry."""
+    """The one-program path up to ``ONE_PROGRAM_MAX`` items, the staged
+    builder past it (the cut shrunk to n - 1) or under ``valid``, and
+    ``inputs_box`` emptied on entry."""
     calls = []
     build = T._build_v_staged
     monkeypatch.setattr(T, "_build_v_staged", lambda *a, **k: calls.append(k) or build(*a, **k))
@@ -183,6 +193,12 @@ def test_builder_choice_and_box_hand_over(monkeypatch):
     masked = T.re_ranking(*mats, k1=5, k2=3, valid=(10, 40))
     assert len(calls) == 1 and calls[0]["valid"] == (10, 40)
     torch.testing.assert_close(masked, auto, rtol=0, atol=TOL)
+    monkeypatch.setattr(T, "ONE_PROGRAM_MAX", 50)
+    T.re_ranking(*mats, k1=5, k2=3)
+    assert len(calls) == 1  # n = 50 is at the cut
+    monkeypatch.setattr(T, "ONE_PROGRAM_MAX", 49)
+    torch.testing.assert_close(T.re_ranking(*mats, k1=5, k2=3), auto, rtol=0, atol=TOL)
+    assert len(calls) == 2 and calls[1]["valid"] is None
 
 
 def test_evaluator_hands_the_distances_over_in_a_box(monkeypatch):
