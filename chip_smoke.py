@@ -63,8 +63,9 @@ descriptor), with seeded random weights. Phases:
 14. ``rerank_staged``: re-ranking of random unit 6144-d features at n =
     19960 (1980 queries, 17980 query ∪ gallery items), past the staged
     builder's cut at 16384: the staged builder (one kernel launch per
-    8192-row slab), the one-program builder and the staged builder with
-    the plain min-sum agree; seconds and peak memory of each;
+    8192-row slab), the one-program builder (one launch of the selection
+    kernel, which the staged runs do not launch) and the staged builder
+    with the plain min-sum agree; seconds and peak memory of each;
 15. ``serve``: ``cli.extract export-model`` of ``cli_train``'s checkpoint
     at full width (batch 32, 8 frames, 256x128), then ``serve --listen
     unix:`` in this process driven by ``grl_tpu_torch.client.ServeClient``:
@@ -228,6 +229,16 @@ at one slab of the staged builder (1980 x 8192 x 19960) and at the short
 slab that ends each rank's rows in ``rerank_sharded`` (1980 x 1788 x
 19960).
 
+``nearest`` (after phase 3): the selection kernel held index for index to
+the stable argsort's first k columns on uniform, clustered, lattice-tied
+and padded rows (k = 1, 6, 21, 32, 41 and 100; n from 13 to 32768; a row
+stride past n), then timed at the serve route's (11598²) and MARS's (13290²)
+re-ranking shapes on clustered distances beside its bound (one read of the
+matrix), the plain version and ``torch.topk`` on unique int64 keys. The
+``serve`` phase counts its launches in the padded daemon's warm-up and per
+re-ranked request (padded route 1, staged route 0), ``rerank_staged`` per
+run (one-program builder 1, staged builder 0).
+
 The script runs under the CLIs' precision policy
 (``grl_tpu_torch.set_precision``: TF32 off in cuDNN and cuBLAS, bf16
 products reduced in fp32) except inside the phases that measure TF32: the
@@ -285,6 +296,7 @@ from grl_tpu_torch.nn.norm import _GlobalBatchNormFn
 from grl_tpu_torch.ops.build import BUILD_INFO
 from grl_tpu_torch.ops.minplus import _config as minplus_config
 from grl_tpu_torch.ops.minplus import _lib as build_minplus
+from grl_tpu_torch.ops.nearest import _lib as build_nearest
 from grl_tpu_torch.tools import learning_equivalence as leq
 from grl_tpu_torch.tools import make_fake_duke, make_fake_mars, prepare_real_data, profile_train_step
 from grl_tpu_torch.tools import probe_bandwidth, probe_int8, sweep_compiler_options, sweep_train_compiler_options
@@ -540,6 +552,93 @@ def kernel_time_at(shape, gen, max_mhz, sms):
     del a, b
     torch.cuda.empty_cache()
     return row
+
+
+NEAREST_K = 21  # max(k1 + 1, k2) at re-ranking's defaults
+NEAREST_SHAPES = (("serve", SERVE_N), ("mars", MARS_N))
+
+
+def joined_distances(n, gen, ids=636, dim=6144):
+    """Re-ranking's joined, normalized distances (its ``original``) over n
+    identity-clustered unit 6144-d rows, the serve cell's kind of index:
+    each row's nearest are its identity's, then the rest."""
+    centres = unit_rows(ids, dim, "cuda", gen)
+    pick = torch.randint(0, ids, (n,), device="cuda", generator=gen)
+    f = centres[pick] + 0.8 * torch.randn(n, dim, device="cuda", generator=gen) / dim**0.5
+    f = f / f.norm(dim=1, keepdim=True)
+    d = (2.0 - 2.0 * (f @ f.T)).clamp_(min=0.0)  # squared distances of unit rows
+    return (d / d.max(dim=0).values).T.contiguous()
+
+
+def nearest_cases(gen):
+    """(what, x, k) on random, clustered, tied and padded rows at the
+    design's edges: k from 1 to 100, n from 13 to 32768, a row stride past n."""
+    uniform = torch.rand(1024, 16384, device="cuda", generator=gen)
+    lattice = torch.randint(0, 4, (1024, 16384), device="cuda", generator=gen).float()
+    padded = torch.full((2048, SERVE_N), 2.0, device="cuda").fill_diagonal_(0.0)
+    clustered = joined_distances(2048, gen)
+    wide = torch.rand(600, SERVE_N + 5, device="cuda", generator=gen)
+    for k in (1, 6, 21, 32, 41):
+        yield f"uniform 1024x16384 k={k}", uniform, k
+        yield f"lattice 0..3, 1024x16384 k={k}", lattice, k
+        yield f"padded rows (0 diagonal, 2.0 elsewhere) 2048x{SERVE_N} k={k}", padded, k
+        yield f"clustered 2048x2048 k={k}", clustered, k
+    yield f"row-strided 600x{SERVE_N} (row stride {SERVE_N + 5}) k=21", wide[:, 5:], 21
+    yield "uniform 300x13, k=21 clamped to 13", torch.rand(300, 13, device="cuda", generator=gen), 21
+    yield "all tied 64x700 k=32", torch.zeros(64, 700, device="cuda"), 32
+    yield "all tied 64x700 k=100 (four rounds)", torch.zeros(64, 700, device="cuda"), 100
+    yield "uniform 256x32768 (the widest row) k=21", torch.rand(256, 32768, device="cuda", generator=gen), 21
+
+
+def phase_nearest(gen):
+    """The selection kernel against its plain version (the stable argsort's
+    first k columns), index for index, on ``nearest_cases``; then timed at
+    the serve route's and MARS's re-ranking shapes on clustered distances,
+    beside its bound (one read of the matrix), the plain version and
+    ``torch.topk`` on unique int64 keys (the float's bits << 32 | column),
+    which computes the same lists and which the port never calls."""
+    for what, x, k in nearest_cases(gen):
+        got = ops.nearest_k(x, k)
+        torch.cuda.synchronize()
+        want = ops.nearest_plain(x, k)
+        mismatched_rows = int((got != want).any(dim=1).sum())
+        log("kernel_check", kernel="nearest", case=what, mismatched_rows=mismatched_rows)
+        check(mismatched_rows == 0, f"nearest {what}: {mismatched_rows} rows differ from the stable argsort")
+    torch.cuda.empty_cache()
+
+    max_mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    by_shape = {}
+    for name, n in NEAREST_SHAPES:
+        x, k = joined_distances(n, gen), NEAREST_K
+        before = ops.nearest_k.launches
+        got = ops.nearest_k(x, k)
+        torch.cuda.synchronize()
+        check(ops.nearest_k.launches == before + 1, "nearest_k did not launch its kernel")
+        ms, (sm_mhz, power_w) = cuda_ms(lambda: ops.nearest_k(x, k), reps=20,
+                                        during=lambda: nvidia_smi("clocks.sm,power.draw", units=False).split(", "))
+        plain_ms = cuda_ms(lambda: ops.nearest_plain(x, k), reps=3)
+        equal = bool(torch.equal(got, ops.nearest_plain(x, k)))
+        # the distances are non-negative, so their bits order as they do
+        keys = (x.view(torch.int32).long() << 32) | torch.arange(n, device="cuda")
+        library_ms = cuda_ms(lambda: torch.topk(keys, k, dim=1, largest=False), reps=3)
+        library_equal = bool(torch.equal(got, torch.topk(keys, k, dim=1, largest=False).indices))
+        del keys
+        bound_ms = (4.0 * n * n + 8.0 * n * k) / PEAK_BYTES * 1e3
+        row = {"shape": [n, n, k], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "equal_to_plain": equal, "library_equal": library_equal,
+               "clocks_max_sm_mhz": max_mhz, "clocks_sm_mhz_during": float(sm_mhz),
+               "power_draw_w_during": float(power_w)}
+        log("kernel_time", kernel="nearest", case=name, **row)
+        check(equal and library_equal, f"nearest at {name}: equal to plain {equal}, to topk {library_equal}")
+        by_shape[name] = row
+        del x, got
+        torch.cuda.empty_cache()
+    serve = by_shape["serve"]
+    return {"name": "nearest", "route": "cuda", "source": "grl_tpu_torch/csrc/nearest.cu",
+            "replaces": "no Pallas kernel: jax.lax.top_k at grl_tpu/engine/rerank.py:703, 727",
+            "shape": serve["shape"], "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+            "library_ms": serve["library_ms"], "bound_ms": serve["bound_ms"], "bound_by": "bytes",
+            "by_shape": by_shape}
 
 
 @torch.no_grad()
@@ -2058,6 +2157,7 @@ def phase_rerank_staged(device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6
             out = re_ranking(inputs_box=box, **kw)
         sync(device)
         info = {"seconds": time.perf_counter() - t0, "launches": read_launches()["minplus"],
+                "nearest_launches": read_launches()["nearest"],
                 "at_entry_gib": at_entry / 2**30,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
         return out, info
@@ -2078,6 +2178,8 @@ def phase_rerank_staged(device="cuda", q=STAGED_Q, extra_g=STAGED_EXTRA_G, dim=6
         check(staged_info["launches"] == slabs, f"staged builder launched {staged_info['launches']}, "
                                                 f"expected one per slab ({slabs})")
         check(one_info["launches"] == 1 and plain_info["launches"] == 0, "one-program / plain launches")
+        nearest = (staged_info["nearest_launches"], one_info["nearest_launches"], plain_info["nearest_launches"])
+        check(nearest == (0, 1, 0), f"nearest launches (staged, one-program, staged plain): {nearest}")
     check(err_one <= KERNEL_TOL, f"staged vs one-program builder: {err_one}")
     check(err_plain <= KERNEL_TOL, f"staged builder, kernel vs plain min-sum: {err_plain}")
     return staged_info["launches"], staged_info, staged
@@ -2398,7 +2500,7 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
         sync(device)
         rr = c.rank(features=queries, topk=k, rerank=True)
         sync(device)
-        info["launches"] = read_launches()["minplus"]
+        info["launches"], info["nearest_launches"] = read_launches()["minplus"], read_launches()["nearest"]
         info["rerank_ms"] = median_ms(lambda: c.rank(features=queries, topk=k, rerank=True))
         if cuda:  # device time of one request of each kind (the daemon's thread is in this process)
             info["rank_profile"] = device_profile(lambda: c.rank(features=queries, topk=k), top=4)
@@ -2408,10 +2510,12 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
         return answer(rr)
 
     padded, staged = {}, {}
+    zero_launches()
     t0 = time.perf_counter()
     with loaded_artifacts() as loaded, daemon(["--gallery", str(SERVE_DIR / "gallery.npz"), "--capacity",
                                                str(geo["capacity"]), *common], device, sock) as c:
         padded["ready_s"] = time.perf_counter() - t0
+        padded["warm_up_nearest_launches"] = read_launches()["nearest"]  # the re-ranked warm-up's
         ping = c.ping()
         mark = dispatch_mark(c, loaded)
         check(ping["platform"] == torch.device(device).type and ping["rerank"] and not ping["rerank_staged"]
@@ -2494,8 +2598,13 @@ def phase_serve(gen, device="cuda", extra=(), geo=SERVE):
         slabs = -(-(b + geo["staged_capacity"] + 256) // rerank_mod._MINPLUS_CHUNK)
         check(padded["launches"] == 1, f"padded route launched the kernel {padded['launches']} times")
         check(staged["launches"] == slabs, f"staged route launched {staged['launches']}, expected {slabs}")
-    return {"serve_padded": padded["launches"], "serve_staged": staged["launches"],
-            "serve_devices": devices["launches"]}
+        check(padded["warm_up_nearest_launches"] >= 1, "the daemon's warm-up did not launch the nearest kernel")
+        check((padded["nearest_launches"], staged["nearest_launches"]) == (1, 0),
+              f"nearest launches: padded {padded['nearest_launches']}, staged {staged['nearest_launches']}")
+    return ({"serve_padded": padded["launches"], "serve_staged": staged["launches"],
+             "serve_devices": devices["launches"]},
+            {"serve_warm_up": padded["warm_up_nearest_launches"], "serve_padded": padded["nearest_launches"],
+             "serve_staged": staged["nearest_launches"]})
 
 
 class Tee(io.TextIOBase):
@@ -2531,7 +2640,7 @@ def serve_devices(common, geo, queries, k, device, sock, rr_staged):
         sync(device)
         rr = c.rank(features=queries, topk=k, rerank=True)
         sync(device)
-        info["launches"] = read_launches()["minplus"]
+        info["launches"], info["nearest_launches"] = read_launches()["minplus"], read_launches()["nearest"]
         info["rerank_ms"] = median_ms(lambda: c.rank(features=queries, topk=k, rerank=True), reps=3)
     said = [ln for ln in tee.copy.getvalue().splitlines() if ln.startswith("--devices 2:")]
     idx, scores = answer(rr)
@@ -3020,14 +3129,17 @@ def main():
     log("host", **host_inventory())
     t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    build_minplus()
-    info = BUILD_INFO["minplus"]
-    log("build", kernel="minplus", seconds=time.perf_counter() - t0, nvcc_seconds=info["seconds"],
-        ptxas=[ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln])
+    for name, build in (("minplus", build_minplus), ("nearest", build_nearest)):
+        t0 = time.perf_counter()
+        build()
+        info = BUILD_INFO[name]
+        log("build", kernel=name, seconds=time.perf_counter() - t0, nvcc_seconds=info["seconds"],
+            ptxas=[ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln
+                   or "smem" in ln])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     entry = phase_kernels(gen)
+    nearest_entry = phase_nearest(gen)
     cnn, sia = phase_model(gen)
     launches = phase_slice(cnn, sia)
     phase_probes(cnn, sia)
@@ -3079,7 +3191,7 @@ def main():
     del staged
     torch.cuda.empty_cache()
     dryrun_launches = phase_dryrun()
-    serve_launches = phase_serve(gen)
+    serve_launches, serve_nearest = phase_serve(gen)
     torch.cuda.empty_cache()
     rank_cli_launches = phase_extract_cli()
     torch.cuda.empty_cache()
@@ -3105,8 +3217,15 @@ def main():
                                  **{path: sum(n) for path, n in dryrun_launches.items()}}
     entry["launches_by_rank"] = sharded_launches | dryrun_launches
     entry["max_err"], entry["kernel_ms"] = entry["max_abs_err"], entry["ms"]
+    # the one-program and padded routes select with it; the staged and sharded ones do not
+    nearest_entry["launches_by_path"] = {"evaluate": launches["nearest"], "train": train_launches["nearest"],
+                                         "cli_train": cli_train_launches["nearest"],
+                                         "cli_evaluate": cli_eval_launches["nearest"],
+                                         "cli_mars_evaluate": mars_launches["nearest"],
+                                         "cli_duke_evaluate": duke_launches["nearest"],
+                                         "rank_cli": rank_cli_launches["nearest"], **serve_nearest}
     log("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, nearest_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

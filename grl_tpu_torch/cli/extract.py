@@ -661,8 +661,8 @@ class _GalleryIndex:
 
     def warm_up(self, rows):
         """Both rankings once, plain over ``rows`` queries and re-ranked, so
-        that library set-up and the min-plus kernel's build land before the
-        first request."""
+        that library set-up and the min-plus and nearest kernels' builds
+        land before the first request."""
         with torch.inference_mode():
             n1 = max(self.n, 1)
             float(self._top_k(torch.zeros((rows, self.gf.shape[1]), device=self.device) @ self.gf.T, n1)[0][0, 0])
@@ -979,8 +979,8 @@ def serve(args, inp=None, out=None):
 
     if getattr(args, "warmup", False):
         # run every serving path once before accepting requests: CUDA and
-        # library initialization, and the min-plus kernel's build at its
-        # first use, land here instead of on a live query
+        # library initialization, and the min-plus and nearest kernels'
+        # builds at their first use, land here instead of on a live query
         t0 = time.time()
         dummy = np.zeros((meta["batch"], meta["seq_len"], meta["height"],
                           meta["width"], meta["channels"]), np.uint8)

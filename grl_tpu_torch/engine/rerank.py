@@ -24,12 +24,15 @@ Four builders, as in grl_tpu:
 
 Every device builder ends in the Jaccard min-sum, the hand-written min-plus
 kernel (``ops.minplus``), over V built in 16-byte aligned rows
-(``ops.padded_empty``) so the kernel reads it in place.
+(``ops.padded_empty``) so the kernel reads it in place. The one-program and
+padded builders pick each row's nearest columns with the hand-written
+selection kernel (``ops.nearest_k``), which reads the row once.
 
 Under a profiler (``utils.profiling.span``, each with the card's time of
 its work) the padded and one-program builders are spans by stage:
 ``rerank.original`` (the joined, normalized distances),
-``rerank.nearest``, ``rerank.expand`` (the k-reciprocal sets and their
+``rerank.nearest`` (each row's first max(k1 + 1, k2) columns of the order),
+``rerank.expand`` (the k-reciprocal sets and their
 expansion, from the neighbour lists), ``rerank.query_expand`` (V and its k2
 average), ``rerank.min_sum`` and ``rerank.blend``. Of the staged and
 sharded builders only the blend that ``re_ranking`` shares with the
@@ -59,7 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops import minplus, padded_empty
+from ..ops import minplus, nearest_k, padded_empty
 from ..parallel import row_block
 from ..utils.profiling import span
 
@@ -90,15 +93,6 @@ def warn_if_degenerate(n_total, k1=20, k2=6):
     return False
 
 
-def nearest(original):
-    """Every row's columns from nearest to farthest, ties by lower index.
-
-    A stable ascending argsort orders exactly as ``jax.lax.top_k(-x, k)``
-    does (largest of -x first, ties to the lower index); ``torch.topk``
-    breaks ties in no fixed order."""
-    return torch.argsort(original, dim=1, stable=True)
-
-
 def top_k(x, k):
     """``(values, indices)`` of each row's ``k`` largest entries of float32
     ``x``, in ``jax.lax.top_k``'s order: IEEE total order (+0.0 above -0.0)
@@ -116,7 +110,9 @@ def v_from_original(original, k1, k2):
     reads V and its query rows without a copy."""
     n, device = original.shape[0], original.device
     with span("rerank.nearest", device=device):
-        order = nearest(original)
+        # every list below is a prefix of each row's first max(k1 + 1, k2)
+        # columns in the stable ascending order
+        order = nearest_k(original.contiguous(), max(k1 + 1, k2))
 
     with span("rerank.expand", device=device):
         # numpy's rank[:, :k] clamps when k > n; so does grl_tpu, and so does the slice
@@ -144,7 +140,7 @@ def _expansion_rows(idx_k1, idx_half, start=0, rows=None):
     """The bool expansion ``R'`` of rows ``[start, start + rows)`` (default:
     to the end), (rows, n), from every row's nearest indices: ``idx_k1``
     (n, k1+1) and ``idx_half`` (n, round(k1/2)+1), each row's first columns
-    of ``nearest``'s order (clamped to n).
+    of the stable ascending order (``ops.nearest_k``; clamped to n).
 
     The definition's dense ``A ∧ Aᵀ`` and its two 0/1 products, worked out
     on the lists: ``R(i)`` is the members ``j`` of ``F(i) = idx_k1[i]``

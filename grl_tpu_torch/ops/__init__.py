@@ -5,7 +5,8 @@ in ``wrapper.launches``.
 """
 
 from .minplus import minplus, minplus_plain, padded_empty
+from .nearest import nearest_k, nearest_plain
 
-KERNELS = {"minplus": minplus}
+KERNELS = {"minplus": minplus, "nearest": nearest_k}
 
-__all__ = ["KERNELS", "minplus", "minplus_plain", "padded_empty"]
+__all__ = ["KERNELS", "minplus", "minplus_plain", "nearest_k", "nearest_plain", "padded_empty"]

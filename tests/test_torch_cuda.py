@@ -16,7 +16,7 @@ import torch
 
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
 from grl_tpu_torch.engine.rerank import re_ranking
-from grl_tpu_torch.ops import minplus, minplus_plain, padded_empty
+from grl_tpu_torch.ops import minplus, minplus_plain, nearest_k, padded_empty
 from grl_tpu_torch.ops.minplus import _config, aligned, schedule
 
 pytestmark = pytest.mark.cuda
@@ -318,6 +318,105 @@ def test_rerank_stage_spans_time_the_card_and_add_nothing_to_its_trace(gen):
               if ev.device_type() == torch.autograd.DeviceType.CUDA and ev.duration_ns() > 0]
     assert any("minplus" in name for name in device)
     assert not [name for name in device if name in stages or "Event" in name]
+
+
+NEAREST_LAYOUTS = {
+    "uniform": lambda n, gen: torch.rand(256, n, device="cuda", generator=gen),
+    # values 0..3: every row ties across every k boundary
+    "lattice": lambda n, gen: torch.randint(0, 4, (256, n), device="cuda", generator=gen).float(),
+    # re_ranking_padded's pad rows: 0 on the diagonal, 2.0 elsewhere
+    "padded_rows": lambda n, gen: torch.full((256, n), 2.0, device="cuda").fill_diagonal_(0.0),
+}
+
+
+@pytest.mark.parametrize("k", [1, 6, 21, 32, 41, 100])
+@pytest.mark.parametrize("n", [11598, 16384, 19960, 32768])
+@pytest.mark.parametrize("layout", sorted(NEAREST_LAYOUTS))
+def test_nearest_kernel_equals_the_stable_argsort_prefix(gen, layout, n, k):
+    """At the serve route's n, the one-program cut, the staged phase's n and
+    the kernel's widest, in one round of 32 columns and in several, index
+    for index."""
+    x = NEAREST_LAYOUTS[layout](n, gen)
+    before = nearest_k.launches
+    got = nearest_k(x, k)
+    torch.cuda.synchronize()
+    assert nearest_k.launches == before + 1
+    assert torch.equal(got, torch.argsort(x, dim=1, stable=True)[:, :k])
+
+
+NEAREST_EDGES = {
+    "n_13_clamps_k": (lambda gen: torch.rand(300, 13, device="cuda", generator=gen), 21),
+    "n_700_below_two_columns_a_thread": (lambda gen: torch.rand(300, 700, device="cuda", generator=gen), 32),
+    "k_equals_n": (lambda gen: torch.rand(50, 32, device="cuda", generator=gen), 32),
+    "all_tied": (lambda gen: torch.zeros(64, 5000, device="cuda"), 21),
+    "row_strided_view": (lambda gen: torch.rand(300, 11603, device="cuda", generator=gen)[:, 5:], 21),
+    "one_row": (lambda gen: torch.rand(1, 16384, device="cuda", generator=gen), 21),
+    "k_equals_n_in_four_rounds": (lambda gen: torch.rand(50, 100, device="cuda", generator=gen), 100),
+    "all_tied_past_one_round": (lambda gen: torch.zeros(64, 5000, device="cuda"), 70),
+    "crowded_candidates": (lambda gen: crowded_rows(gen), 32),
+}
+
+
+def crowded_rows(gen, rows=16, n=32768, threads=512):
+    """Rows whose first 31 of the kernel's 512 threads hold only tiny values
+    and the 32nd one middling value below the rest: each of those 31 threads'
+    64 columns is a candidate, 31 x 64 + 1 of the 32 x 64 slots."""
+    x = 1.0 + torch.rand(rows, n, device="cuda", generator=gen)
+    view = x.view(rows, n // threads, threads)
+    view[:, :, :31] = 0.5 * torch.rand(rows, n // threads, 31, device="cuda", generator=gen)
+    view[:, 0, 31] = 0.75
+    return x
+
+
+@pytest.mark.parametrize("case", sorted(NEAREST_EDGES))
+def test_nearest_kernel_at_the_designs_edges(gen, case):
+    make, k = NEAREST_EDGES[case]
+    x = make(gen)
+    got = nearest_k(x, k)
+    torch.cuda.synchronize()
+    assert got.shape == (x.shape[0], min(k, x.shape[1]))
+    assert torch.equal(got, torch.argsort(x, dim=1, stable=True)[:, :k])
+
+
+def clustered_unit_rows(rows, gen, ids=60, dim=256):
+    """Unit rows around ``ids`` centres: each row's nearest are its centre's."""
+    centres = torch.randn(ids, dim, device="cuda", generator=gen)
+    pick = torch.randint(0, ids, (rows,), device="cuda", generator=gen)
+    f = centres / centres.norm(dim=1, keepdim=True)
+    f = f[pick] + 0.8 * torch.randn(rows, dim, device="cuda", generator=gen) / dim**0.5
+    return f / f.norm(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("k1", [20, 40])
+@pytest.mark.parametrize("route", ["one_program", "padded"])
+def test_rerank_routes_select_with_the_kernel_to_the_sorts_bits(gen, monkeypatch, route, k1):
+    """The one-program and padded builders launch the selection kernel
+    once, and give the same V and distances, bit for bit, as with the
+    stable argsort's lists, at the default k1 and at one past a round."""
+    from grl_tpu_torch.engine import rerank
+
+    feats = clustered_unit_rows(2000, gen)
+    qf, gf = feats[:200], feats
+    dists = cosine_distance(qf, gf), _euclidean(qf, qf), _euclidean(gf, gf)
+    if route == "padded":  # 200 of 232 query rows, 2000 of 2100 gallery rows valid, garbage past them
+        pads = [torch.full((232, 2100), 1e6, device="cuda"), torch.full((232, 232), -5.0, device="cuda"),
+                torch.full((2100, 2100), 3e-8, device="cuda")]
+        for pad, d in zip(pads, dists):
+            pad[: d.shape[0], : d.shape[1]] = d
+        run = lambda: rerank.re_ranking_padded(*pads, 200, 2000, k1=k1)[:200, :2000]
+    else:
+        run = lambda: rerank.re_ranking(*dists, k1=k1)
+    vs, real = [], rerank.v_from_original
+    monkeypatch.setattr(rerank, "v_from_original", lambda *a: vs.append(real(*a)) or vs[-1])
+
+    before = nearest_k.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert nearest_k.launches == before + 1
+    monkeypatch.setattr(rerank, "nearest_k", lambda x, k: torch.argsort(x, dim=1, stable=True)[:, :k])
+    want = run()
+    assert nearest_k.launches == before + 1
+    assert torch.equal(vs[0], vs[1]) and torch.equal(got, want)
 
 
 def test_staged_and_padded_builders_on_card_match_plain_min_sum(gen, monkeypatch):

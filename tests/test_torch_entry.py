@@ -105,7 +105,7 @@ def test_dryrun_multichip_on_gloo_ranks(n, capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert [r["rank"] for r in ranks] == list(range(n))
     assert all(r["backend"] == "gloo" and r["device"] == "cpu" for r in ranks)
-    assert all(r["launches"] == {"minplus": 0} for r in ranks)  # CPU tensors take the plain min-sum
+    assert all(r["launches"] == {"minplus": 0, "nearest": 0} for r in ranks)  # CPU tensors take the plain versions
     r0 = ranks[0]
     assert np.isfinite(r0["loss"]) and 0.0 <= r0["prec_frame"] <= 1.0
     for r in ranks[1:]:  # the global batch's metrics and the whole results, on every rank

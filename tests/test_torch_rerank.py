@@ -18,8 +18,10 @@ from grl_tpu_torch.engine import metrics as tmetrics
 from grl_tpu_torch.engine.evaluator import _euclidean, cosine_distance
 from grl_tpu.engine.rerank import _v_from_original as j_v_from_original
 from grl_tpu_torch.engine import rerank as R
-from grl_tpu_torch.engine.rerank import nearest, re_ranking, v_from_original, warn_if_degenerate
+from grl_tpu_torch.engine.rerank import re_ranking, v_from_original, warn_if_degenerate
+from grl_tpu_torch.ops import nearest_k, nearest_plain
 from grl_tpu_torch.ops.minplus import aligned
+from grl_tpu_torch.ops.nearest import MAX_COLUMNS
 from torch_oracle import dense_expansion
 
 
@@ -73,7 +75,7 @@ def test_duplicated_layout_has_topk_ties():
 
 def test_nearest_breaks_ties_to_lower_index():
     row = torch.tensor([[0.5, 0.1, 0.3, 0.1, 0.3, 0.2, 0.1]])
-    assert nearest(row)[0, :3].tolist() == [1, 3, 6]
+    assert nearest_plain(row, 3)[0].tolist() == [1, 3, 6]
 
 
 def test_distances_match_grl_tpu():
@@ -149,7 +151,7 @@ def _lists(mats, k1, start=0, rows=None, dtype=torch.int64):
     builder: int32, with its row range)."""
     qg, qq, gg = mats
     original = np.block([[qq, qg], [qg.T, gg]]) ** 2
-    order = nearest(torch.from_numpy((original / original.max(0)).T.astype(np.float32))).to(dtype)
+    order = nearest_plain(torch.from_numpy((original / original.max(0)).T.astype(np.float32)), k1 + 1).to(dtype)
     half = int(np.around(k1 / 2.0)) + 1
     return [((order[:, : k1 + 1], order[:, :half], start, rows), {})]
 
@@ -203,3 +205,74 @@ def test_expansion_from_lists_equals_dense_products(monkeypatch, case):
         start, rows = _row_range(*args, **kw)
         assert got.dtype == torch.bool and got.shape == (rows, args[0].shape[0])
         assert torch.equal(got, dense_expansion(args[0], args[1])[start : start + rows])
+
+
+def _joined(mats):
+    """The joined, normalized distances that ``v_from_original`` selects from."""
+    qg, qq, gg = mats
+    original = np.block([[qq, qg], [qg.T, gg]]) ** 2
+    return torch.from_numpy(np.ascontiguousarray((original / original.max(0)).T, dtype=np.float32))
+
+
+def _padded_original(valid=90):
+    """``re_ranking_padded``'s geometry: rows and columns past the valid
+    items at 2.0, every diagonal entry 0."""
+    x = _joined(_synthetic_dists(25, 90))
+    x[valid:], x[:, valid:] = 2.0, 2.0
+    return x.fill_diagonal_(0.0)
+
+
+SELECTIONS = {
+    "random_k1": (lambda: _joined(_synthetic_dists(25, 90)), 1),
+    "random_k21": (lambda: _joined(_synthetic_dists(25, 90)), 21),
+    "random_k32": (lambda: _joined(_synthetic_dists(30, 120, seed=5)), 32),
+    "random_k41": (lambda: _joined(_synthetic_dists(30, 120, seed=5)), 41),
+    "random_every_column": (lambda: _joined(_synthetic_dists(25, 90)), 115),
+    "duplicated_ties_k6": (lambda: _joined(_duplicated_layout()[:3]), 6),
+    "duplicated_ties_k11": (lambda: _joined(_duplicated_layout()[:3]), 11),
+    "duplicated_ties_k21": (lambda: _joined(_duplicated_layout()[:3]), 21),
+    "padded_rows_k21": (_padded_original, 21),
+    "n_below_k_clamps": (lambda: _joined(_synthetic_dists(4, 9)), 21),
+    "row_strided_view": (lambda: _joined(_synthetic_dists(25, 90))[3:, :60], 21),
+    "all_tied": (lambda: torch.zeros(7, 30), 21),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SELECTIONS))
+def test_nearest_selection_is_the_stable_orders_prefix_and_launches_nothing_on_the_cpu(case):
+    """``nearest_plain`` and the wrapper give the stable ascending order's
+    first k columns (clamped to n), ties to the lower index; a CPU tensor
+    takes the plain version and launches no kernel."""
+    x, k = SELECTIONS[case][0](), SELECTIONS[case][1]
+    want = torch.argsort(x, dim=1, stable=True)[:, :k]
+    before = nearest_k.launches
+    for fn in (nearest_plain, nearest_k):
+        got = fn(x, k)
+        assert got.dtype == torch.int64 and got.shape == (x.shape[0], min(k, x.shape[1]))
+        assert torch.equal(got, want)
+    assert nearest_k.launches == before
+
+
+REFUSALS = {
+    "negative_k": (lambda: torch.rand(4, 64), -1, ValueError),
+    "n_above_max_columns": (lambda: torch.zeros(2, MAX_COLUMNS + 1), 21, ValueError),
+    "float64": (lambda: torch.rand(4, 64, dtype=torch.float64), 21, TypeError),
+    "bfloat16": (lambda: torch.rand(4, 64).bfloat16(), 21, TypeError),
+    "column_strided": (lambda: torch.rand(4, 128)[:, ::2], 21, ValueError),
+    "transposed": (lambda: torch.rand(64, 4).T, 21, ValueError),
+    "one_dimensional": (lambda: torch.rand(64), 21, ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_nearest_k_refuses_what_the_kernel_does_not_take(case):
+    make, k, error = REFUSALS[case]
+    with pytest.raises(error):
+        nearest_k(make(), k)
+
+
+def test_every_one_program_row_fits_the_selection_kernel():
+    """The one-program and padded builders select from rows of at most
+    ``ONE_PROGRAM_MAX`` columns; the kernel takes them at any k."""
+    assert R.ONE_PROGRAM_MAX <= MAX_COLUMNS
+    assert nearest_k(torch.rand(3, MAX_COLUMNS), 41).shape == (3, 41)

@@ -129,6 +129,24 @@ def test_padded_builders_match_grl_tpu_and_host(blocks, geometry, k2):
     np.testing.assert_allclose(staged, host, rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("route", ["one_program", "padded", "staged"])
+def test_k1_40_on_every_route_matches_grl_tpu(monkeypatch, route):
+    """k1 = 40: each row's 41 nearest columns, past one 32-column round of
+    the selection kernel, on each builder, against grl_tpu's."""
+    mats = _dists(25, 90, seed=21, zero_diag=True)
+    if route == "padded":
+        rng = np.random.RandomState(1)
+        padded = [_pad_garbage(rng, m, r, c) for m, (r, c) in zip(mats, [(28, 100), (28, 28), (100, 100)])]
+        got = _port(T.re_ranking_padded, padded, 25, 90, k1=40, k2=6)[:25, :90]
+        want = _jax(J.re_ranking_device_padded, padded, 25, 90, k1=40, k2=6)[:25, :90]
+    else:
+        if route == "staged":
+            monkeypatch.setattr(T, "ONE_PROGRAM_MAX", 0)
+        got = _port(T.re_ranking, mats, k1=40, k2=6)
+        want = _jax(J.re_ranking_device, mats, k1=40, k2=6, staged=route == "staged")
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
 @pytest.mark.parametrize("builder", ["padded", "staged"])
 def test_index_growth_through_one_padded_shape(builder):
     """The serve daemon's index grows inside one buffer: successive valid
